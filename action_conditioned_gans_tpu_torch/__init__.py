@@ -1,0 +1,20 @@
+"""PyTorch + CUDA port of ``action_conditioned_gans_tpu`` for NVIDIA Hopper.
+
+The JAX package beside it is the reference. This package imports neither
+JAX nor anything of that package. Layouts at its public functions are the
+JAX package's (NHWC activations, HWIO kernels). On a CUDA tensor every fused
+conv block runs a hand-written sm_90a kernel (``csrc/``); on a CPU tensor it
+runs the plain PyTorch version.
+"""
+
+from action_conditioned_gans_tpu_torch.config import (  # noqa: F401
+    PRESETS,
+    Config,
+    DataConfig,
+    MeshConfig,
+    ModelConfig,
+    TrainConfig,
+    get_preset,
+)
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+from action_conditioned_gans_tpu_torch.models.generator import Generator  # noqa: F401

@@ -1,0 +1,128 @@
+"""Build the Hopper kernels from ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
+root of the checkout, compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds). The hash covers every file in ``csrc/``, so an edited source never
+loads a stale library. A build happens on first use; :func:`build_all`
+starts one ``nvcc`` per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
+KERNELS = ("conv_norm_act", "conv_transpose_norm_act")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    found = candidate if os.path.exists(candidate) else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the Hopper "
+            "kernels are built from source on the machine with the GPU"
+        )
+    return found
+
+
+def _sources_hash() -> str:
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC_DIR)):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"{name}-{_sources_hash()}.so")
+
+
+def _nvcc_command(name: str, out: str) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC_DIR, f"{name}.cu")]
+
+
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source in parallel.
+
+    Returns {name: library path}. Raises with the compiler's output if any
+    build fails.
+    """
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    procs = {}
+    for name, path in paths.items():
+        if os.path.exists(path):
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        procs[name] = (
+            subprocess.Popen(
+                _nvcc_command(name, tmp),
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            ),
+            tmp,
+        )
+    failures = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, paths[name])
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built on first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build_all([name])[name])
+            _declare(name, lib)
+            _loaded[name] = lib
+        return lib
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    lib.acg_tile_rows.argtypes = [_I, _I]  # bf16, Cout
+    lib.acg_tile_rows.restype = _I
+    if name == "conv_norm_act":
+        lib.acg_conv_norm_act.argtypes = (
+            [_P] * 9  # x, w, scale, bias, out, y, psum, psq, stats
+            + [_I] * 14  # bf16, B, H, W, Cin, OH, OW, Cout, KH, KW, stride, pad_h, pad_w, group_norm
+            + [_I, _F, _I, _F, _P]  # groups, eps, act, leak, stream
+        )
+        lib.acg_conv_norm_act.restype = _I
+    elif name == "conv_transpose_norm_act":
+        lib.acg_conv_transpose_norm_act.argtypes = (
+            [_P] * 9  # x, w, scale, bias, out, y, psum, psq, stats
+            + [_I] * 7  # bf16, B, H, W, Cin, Cout, group_norm
+            + [_I, _F, _I, _F, _P]  # groups, eps, act, leak, stream
+        )
+        lib.acg_conv_transpose_norm_act.restype = _I
+    else:
+        raise KeyError(f"unknown kernel {name!r}")

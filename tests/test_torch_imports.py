@@ -1,0 +1,50 @@
+"""The port stands alone: no file of ``action_conditioned_gans_tpu_torch`` and
+not ``chip_smoke.py`` imports JAX, Flax, optax, orbax or the JAX package."""
+
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "action_conditioned_gans_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "action_conditioned_gans_tpu"}
+
+
+def port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
+    return sorted(files)
+
+
+def imported_top_levels(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_the_scan_sees_the_whole_port():
+    rel = {os.path.relpath(p, REPO) for p in port_files()}
+    assert "chip_smoke.py" in rel
+    assert "action_conditioned_gans_tpu_torch/ops/kernels/conv.py" in rel
+    assert len(rel) >= 15
+
+
+@pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_import(path):
+    bad = sorted(set(imported_top_levels(path)) & FORBIDDEN)
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_the_check_catches_a_jax_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\nfrom action_conditioned_gans_tpu.ops import xla\nimport jax.numpy\n")
+    assert set(imported_top_levels(str(f))) & FORBIDDEN == {"action_conditioned_gans_tpu", "jax"}
+    f.write_text("from action_conditioned_gans_tpu_torch import ops\n")
+    assert not set(imported_top_levels(str(f))) & FORBIDDEN
