@@ -3,8 +3,10 @@
 The JAX package beside it is the reference. This package imports neither
 JAX nor anything of that package. Layouts at its public functions are the
 JAX package's (NHWC activations, HWIO kernels). On a CUDA tensor every fused
-conv block runs a hand-written sm_90a kernel (``csrc/``); on a CPU tensor it
-runs the plain PyTorch version.
+conv block runs a hand-written sm_90a kernel (``csrc/``), and under autograd
+its GroupNorm backward runs one too; on a CPU tensor the plain PyTorch
+versions run. ``infer`` serves the generator; ``train`` takes fused G+D
+training steps.
 """
 
 from action_conditioned_gans_tpu_torch.config import (  # noqa: F401

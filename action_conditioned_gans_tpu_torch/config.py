@@ -5,16 +5,17 @@ Every knob is a frozen dataclass with the same names and defaults, so a
 five presets are the same five configurations. ``ModelConfig.dtype`` returns
 a torch dtype.
 
-Engine knobs the port does not run yet (``gn_backward``, ``wgrad="patches"``,
+Engine knobs the port does not run yet (``wgrad="patches"``,
 ``deconv="subpixel"``, ``conv0="s2d"``) are accepted here, so an archive that
 records them still parses; :func:`check_ported_engines` refuses them where a
-model is built.
+model is built. :func:`check_ported_train` refuses the training knobs the
+port's train step does not run yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -65,6 +66,11 @@ class ModelConfig:
     backend: str = "xla"
 
     # Gradient and rewrite engines of the JAX package (see its config.py).
+    # gn_backward ("ad", "fused", "pallas") picks how the JAX package
+    # differentiates a GroupNorm; all three compute the same gradient. The
+    # port runs one path for all three: the fused conv blocks' autograd
+    # Functions, whose GroupNorm backward is the closed form of ops/gn.py
+    # (the gn_act_bwd kernel on CUDA, reference.gn_act_grads on the CPU).
     gn_backward: str = "ad"
     wgrad: str = "xla"
     deconv: str = "xla"
@@ -109,10 +115,11 @@ class ModelConfig:
         return self.action_dim + self.state_dim
 
 
-# Engine knobs that only say how the JAX package trains or rewrites a layer.
-# Their forward is the same function, so an archive may record any value;
-# the port resets them to these defaults where it reads one.
-ENGINE_DEFAULTS = {"gn_backward": "ad", "wgrad": "xla", "deconv": "xla", "conv0": "xla"}
+# Engine knobs that only say how the JAX package trains or rewrites a layer
+# and that the port does not run yet. Their forward is the same function, so
+# an archive may record any value; the port resets them to these defaults
+# where it reads one. (gn_backward is not among them: every value runs.)
+ENGINE_DEFAULTS = {"wgrad": "xla", "deconv": "xla", "conv0": "xla"}
 
 
 def check_ported_engines(cfg: ModelConfig) -> None:
@@ -161,6 +168,19 @@ class MeshConfig:
     axis_names: Tuple[str, str] = ("data", "model")
 
 
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """``device`` as given, or ``cuda`` when None; never a silent CPU. The
+    rule of every entry point (``Predictor``, ``make_train_step``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
+    return torch.device("cuda")
+
+
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
@@ -207,6 +227,25 @@ class TrainConfig:
     checkpoint_every: int = 1000
     checkpoint_keep: int = 3
     sample_every: int = 1000
+
+
+def check_ported_train(cfg: "Config") -> None:
+    """Raise, where a train step is built, for a training knob the port's
+    train step does not run yet."""
+    t, m = cfg.train, cfg.model
+    unported = {
+        "train.scheduled_sampling": t.scheduled_sampling,
+        "train.d_augment": bool(t.d_augment),
+        "train.r1_weight > 0": t.r1_weight > 0,
+        "train.disc_microbatch > 0": t.disc_microbatch > 0,
+        "train.rollout_time_chunk > 0": t.rollout_time_chunk > 0,
+        "train.remat_rollout": t.remat_rollout,
+        "train.ema_decay > 0": t.ema_decay > 0,
+        'model.norm="batch"': m.norm == "batch",
+    }
+    for name, on in unported.items():
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet; the port's train step refuses it")
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +324,22 @@ PRESETS = {
         mesh=MeshConfig(data=-1, model=1),
     ),
 }
+
+
+def config_from_dict(d: dict) -> Config:
+    """A Config from ``dataclasses.asdict`` of a Config of either package
+    (the JSON both write)."""
+    d = dict(d)
+    mesh = dict(d.pop("mesh", {}))
+    if "axis_names" in mesh:
+        mesh["axis_names"] = tuple(mesh["axis_names"])
+    return Config(
+        model=ModelConfig(**d.pop("model", {})),
+        data=DataConfig(**d.pop("data", {})),
+        train=TrainConfig(**d.pop("train", {})),
+        mesh=MeshConfig(**mesh),
+        **d,
+    )
 
 
 def get_preset(name: str, **overrides) -> Config:

@@ -1,10 +1,13 @@
-"""Carry generator weights between the JAX package's Flax tree and the port.
+"""Carry weights between the JAX package's Flax trees and the port.
 
 The Flax tree is ``{"enc_0": {"kernel": ..., "bias": ...}, ...}`` (or its
 flat form with ``"enc_0/kernel"`` keys, as ``export_generator`` writes it);
-the port's ``state_dict`` uses ``"enc_0.kernel"``. Both keep the layouts
-(HWIO kernels), so the conversion only renames and copies: a round trip is
-bit-exact.
+the port's ``state_dict`` uses ``"enc_0.kernel"``. The discriminator's dense
+logit sits at the top of its tree (``"logit_kernel"``), in both. Both keep
+the layouts (HWIO kernels, (F, 1) dense), so the conversion only renames and
+copies: a round trip is bit-exact. A JAX ``TrainState``'s ``g_params`` and
+``d_params`` each cross with :func:`flax_to_state_dict` and back with
+:func:`state_dict_to_flax`.
 """
 
 from __future__ import annotations
@@ -38,12 +41,15 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     }
 
 
-def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
-    """The port's ``state_dict`` -> nested Flax params with numpy leaves."""
-    tree: Dict[str, Dict[str, np.ndarray]] = {}
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``state_dict`` -> nested Flax params with numpy leaves.
+    A key without a layer (``"logit_kernel"``) stays at the top."""
+    tree: Dict[str, Any] = {}
     for key, value in state_dict.items():
         layer, _, name = key.rpartition(".")
-        if not layer:
-            raise ValueError(f"state_dict key {key!r} is not <layer>.<param>")
-        tree.setdefault(layer, {})[name] = value.detach().float().cpu().numpy()
+        leaf = value.detach().float().cpu().numpy()
+        if layer:
+            tree.setdefault(layer, {})[name] = leaf
+        else:
+            tree[name] = leaf
     return tree

@@ -15,12 +15,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Callable, Mapping, Optional, Union
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
 
-from action_conditioned_gans_tpu_torch.config import ENGINE_DEFAULTS, Config, ModelConfig
+from action_conditioned_gans_tpu_torch.config import ENGINE_DEFAULTS, Config, ModelConfig, resolve_device
 from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict, flatten_flax, state_dict_to_flax
 from action_conditioned_gans_tpu_torch.models import Generator
 
@@ -28,18 +28,6 @@ _META_KEY = "__model_config__"
 # Knobs that say how a host executes the model, not what the model is: from_npz
 # keeps the caller's values of these over the archive's.
 RUNTIME_ONLY = ("compute_dtype", "backend", "gn_backward", "wgrad", "deconv", "conv0")
-
-
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``device`` as given, or ``cuda`` when None; never a silent CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the plain "
-            "PyTorch path on the CPU"
-        )
-    return torch.device("cuda")
 
 
 def export_generator(cfg: Config, state_dict: Mapping[str, torch.Tensor], path: str) -> None:

@@ -28,12 +28,44 @@ def channels_at(level: int, base: int, cap: int) -> int:
     return min(base * (2**level), cap)
 
 
+def flax_trunc_normal_(t: torch.Tensor, stddev: float, generator=None) -> torch.Tensor:
+    """Fill ``t`` in place as Flax's ``truncated_normal(stddev)``: a unit
+    normal cut at +-2, times ``stddev``."""
+    return nn.init.trunc_normal_(t, std=stddev, a=-2 * stddev, b=2 * stddev, generator=generator)
+
+
+def spectral_normalize(w: torch.Tensor, iters: int = 9) -> torch.Tensor:
+    """``w`` divided by its largest singular value, estimated by ``iters``
+    steps of power iteration (port of ``models/common.py``).
+
+    Stateless: the iteration restarts every call from the same vector. A
+    conv kernel (H, W, I, O) flattens to (H*W*I, O). u and v are detached,
+    so the gradient takes the standard form d sigma / dW = u v^T.
+    """
+    shape = w.shape
+    w2d = w.reshape(-1, shape[-1]).float()
+    m = w2d.shape[0]
+    eps = 1e-12
+    with torch.no_grad():
+        wd = w2d.detach()
+        u = torch.full((m,), 1.0, device=w.device) / torch.sqrt(torch.tensor(float(m), device=w.device))
+        for _ in range(iters):
+            v = wd.T @ u
+            v = v / (torch.linalg.vector_norm(v) + eps)
+            u = wd @ v
+            u = u / (torch.linalg.vector_norm(u) + eps)
+    sigma = u @ (w2d @ v)
+    return (w2d / (sigma + eps)).reshape(shape).to(w.dtype)
+
+
 class ConvBlock(nn.Module):
     """conv (or conv-transpose) -> norm -> activation.
 
     Parameters carry the Flax names: ``kernel`` (HWIO), ``scale`` (absent
     when ``norm="none"``) and ``bias``. Initialisation follows Flax:
-    truncated normal (+-2 sigma) with sigma 0.02, unit scales, zero biases.
+    ``truncated_normal(0.02)`` kernels, unit scales, zero biases. With
+    ``spectral_norm`` the kernel is divided by its spectral norm at every
+    call (:func:`spectral_normalize`).
     """
 
     def __init__(
@@ -48,21 +80,24 @@ class ConvBlock(nn.Module):
         act: str = "lrelu",
         leak: float = 0.2,
         transpose: bool = False,
+        spectral_norm: bool = False,
+        sn_iters: int = 9,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.stride, self.norm, self.groups = stride, norm, groups
         self.act, self.leak, self.transpose = act, leak, transpose
+        self.spectral_norm, self.sn_iters = spectral_norm, sn_iters
         w = torch.empty(kernel, kernel, in_features, features)
-        nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=generator)
-        self.kernel = nn.Parameter(w)
+        self.kernel = nn.Parameter(flax_trunc_normal_(w, 0.02, generator))
         self.scale = nn.Parameter(torch.ones(features)) if norm != "none" else None
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = spectral_normalize(self.kernel, self.sn_iters) if self.spectral_norm else self.kernel
         return ops.conv_norm_act(
             x,
-            self.kernel,
+            w,
             self.scale,
             self.bias,
             stride=self.stride,

@@ -60,7 +60,11 @@ def conv_norm_act(
     act: str = "lrelu",
     leak: float = 0.2,
 ) -> torch.Tensor:
-    """The conv(-transpose) -> norm -> activation block of both models."""
+    """The conv(-transpose) -> norm -> activation block of both models.
+
+    When a gradient is needed the call goes through the autograd Functions
+    of ``ops/kernels/conv.py`` (``ConvNormActFn``, ``ConvTransposeNormActFn``);
+    otherwise straight to the kernel (CUDA) or the plain version (CPU)."""
     fn = _conv.conv_transpose_norm_act if transpose else _conv.conv_norm_act
     return fn(
         x, w, scale, bias, stride=stride, kind=kind, groups=groups, eps=eps, act=act, leak=leak

@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``ops/pallas/common.py``: the activation table,
 the GroupNorm group-count rule, and the per-(sample, group) GroupNorm that
-the fused kernels compute in their epilogue.
+the fused kernels compute in their epilogue; and of ``ops/gn.py``'s
+``act_bwd``, the activation cotangent rebuilt from the saved output.
 """
 
 from __future__ import annotations
@@ -21,6 +22,31 @@ def apply_act(y: torch.Tensor, act: str, leak: float) -> torch.Tensor:
         return torch.tanh(y)
     if act == "none":
         return y
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def act_bwd(g: torch.Tensor, out: torch.Tensor, act: str, leak: float) -> torch.Tensor:
+    """Cotangent through the activation, rebuilt from its OUTPUT.
+
+    sign(out) == sign(pre) for lrelu with leak > 0; at leak 0 negatives
+    collapse to out == 0, so the mask is strict, like relu's. tanh' is
+    1 - out^2. A negative leak is not invertible from the output: refused.
+    """
+    if act == "lrelu":
+        if leak < 0:
+            raise ValueError(
+                "the saved-output activation backward needs leak >= 0 (a negative-slope "
+                "lrelu is not invertible from its output)"
+            )
+        if leak == 0:
+            return torch.where(out > 0, g, torch.zeros_like(g))
+        return torch.where(out >= 0, g, g * leak)
+    if act == "relu":
+        return torch.where(out > 0, g, torch.zeros_like(g))
+    if act == "tanh":
+        return g * (1.0 - out * out)
+    if act == "none":
+        return g
     raise ValueError(f"unknown activation {act!r}")
 
 

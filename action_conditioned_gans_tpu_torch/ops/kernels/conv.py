@@ -1,6 +1,6 @@
-"""Wrappers of the fused conv and conv-transpose Hopper kernels.
+"""Wrappers of the fused conv and conv-transpose Hopper kernels, with autograd.
 
-Port of the JAX package's ``ops/pallas/conv.py`` forward:
+Port of the JAX package's ``ops/pallas/conv.py``:
 
 * :func:`conv_norm_act` (``csrc/conv_norm_act.cu``): SAME conv ->
   GroupNorm or bias only -> affine -> activation.
@@ -10,23 +10,44 @@ Port of the JAX package's ``ops/pallas/conv.py`` forward:
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it computes the plain version beside it (``*_plain``: the conv of
 ``ops/reference.py`` plus ``norm_act``). ``LAUNCHES`` counts kernel launches,
-one per wrapper call that reached the kernel. The kernels have no backward
-yet, so a call that would need a gradient raises.
+one per wrapper call that reached the kernel.
+
+When a gradient is needed the call goes through :class:`ConvNormActFn` /
+:class:`ConvTransposeNormActFn`, the port of the Pallas ops' custom VJPs.
+Their forward keeps the kernel's pre-norm ``y`` (float32) and per-(sample,
+group) (mean, rstd), which the serving path discards. Their backward never
+re-runs the forward:
+
+* kind "group": the GroupNorm+activation backward kernel
+  (``ops/kernels/gn_bwd.py``) on (y, out, g, scale, mean, rstd);
+* kind "none": ``act_bwd`` from the saved output and the bias sum, in plain
+  ops;
+* then dx and dw from ``aten.convolution_backward``, which runs only the
+  backward-data / backward-weight convolutions (``jax.linear_transpose`` in
+  the reference), honouring ``ctx.needs_input_grad``.
+
+On the CPU the same Functions run with the plain forward (``y`` in the
+compute dtype, statistics recomputed in the backward, as the JAX VJP does).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from action_conditioned_gans_tpu_torch.ops import reference
-from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, resolve_groups, same_pad
-from action_conditioned_gans_tpu_torch.ops.kernels import build
+from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, act_bwd, resolve_groups, same_pad
+from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd
 
 LAUNCHES = {"conv_norm_act": 0, "conv_transpose_norm_act": 0}
 _KINDS = ("group", "none")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Evaluates only the backward-data / backward-weight convolutions its
+# output_mask asks for.
+_convolution_backward = torch.ops.aten.convolution_backward
 
 
 def reset_launches() -> None:
@@ -34,26 +55,37 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class _Opts:
+    transpose: bool
+    stride: int
+    kind: str
+    groups: int
+    eps: float
+    act: str
+    leak: float
+
+
+def _plain(x, w, scale, bias, o: "_Opts"):
+    """(out, pre-norm y): the conv of ``ops/reference.py`` plus ``norm_act``."""
+    y = (reference.conv2d_transpose if o.transpose else reference.conv2d)(x, w, stride=o.stride)
+    out = reference.norm_act(
+        y, scale if o.kind != "none" else None, bias,
+        kind=o.kind, groups=o.groups, eps=o.eps, act=o.act, leak=o.leak,
+    )
+    return out, y
+
+
 def conv_norm_act_plain(
     x, w, scale, bias, *, stride=1, kind="group", groups=32, eps=1e-5, act="lrelu", leak=0.2
 ) -> torch.Tensor:
-    return reference.norm_act(
-        reference.conv2d(x, w, stride=stride),
-        scale if kind != "none" else None,
-        bias,
-        kind=kind, groups=groups, eps=eps, act=act, leak=leak,
-    )
+    return _plain(x, w, scale, bias, _Opts(False, stride, kind, groups, eps, act, leak))[0]
 
 
 def conv_transpose_norm_act_plain(
     x, w, scale, bias, *, stride=2, kind="group", groups=32, eps=1e-5, act="relu", leak=0.2
 ) -> torch.Tensor:
-    return reference.norm_act(
-        reference.conv2d_transpose(x, w, stride=stride),
-        scale if kind != "none" else None,
-        bias,
-        kind=kind, groups=groups, eps=eps, act=act, leak=leak,
-    )
+    return _plain(x, w, scale, bias, _Opts(True, stride, kind, groups, eps, act, leak))[0]
 
 
 def _check_common(name, x, w, scale, bias, kind, act) -> None:
@@ -69,15 +101,8 @@ def _check_common(name, x, w, scale, bias, kind, act) -> None:
             f"{tuple(x.shape)} and {tuple(w.shape)}"
         )
     for t in (x, w, scale, bias):
-        if t is None:
-            continue
-        if t.device != x.device:
+        if t is not None and t.device != x.device:
             raise ValueError(f"{name}: all tensors must be on {x.device}, one is on {t.device}")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError(
-                f"{name}: the Hopper kernel has no backward yet; call it under "
-                "torch.no_grad() or torch.inference_mode()"
-            )
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous NHWC")
     cout = w.shape[3]
@@ -110,6 +135,177 @@ def _epilogue_operands(x, w, scale, bias, kind, groups, pixels, slots):
     return wk, g, [scale_f, bias_f, y, psum, psq, stats]
 
 
+def _launch_conv(x, w, scale, bias, o: _Opts):
+    """One launch of the conv kernel. Returns (out, epilogue operands,
+    groups); :func:`_residuals` reads y and stats from the operands."""
+    _check_common("conv_norm_act", x, w, scale, bias, o.kind, o.act)
+    kh, kw = w.shape[0], w.shape[1]
+    if o.stride not in (1, 2) or kh != kw:
+        raise ValueError(f"conv_norm_act: want a square kernel and stride 1 or 2, got {kh}x{kw}/{o.stride}")
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    oh, pad_h, _ = same_pad(h, kh, o.stride)
+    ow, pad_w, _ = same_pad(wd, kw, o.stride)
+    lib = build.load("conv_norm_act")
+    slots = -(-(oh * ow) // lib.acg_tile_rows(_DTYPES[x.dtype], cout))
+    wk, g, ops = _epilogue_operands(x, w, scale, bias, o.kind, o.groups, oh * ow, slots)
+    out = torch.empty((b, oh, ow, cout), device=x.device, dtype=x.dtype)
+    ptrs = [_ptr(t) for t in ops]
+    rc = lib.acg_conv_norm_act(
+        x.data_ptr(), wk.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), *ptrs[2:],
+        _DTYPES[x.dtype], b, h, wd, cin, oh, ow, cout, kh, kw, o.stride, pad_h, pad_w,
+        int(o.kind == "group"), g, float(o.eps), ACTIVATIONS.index(o.act), float(o.leak),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"conv_norm_act kernel launch failed: CUDA error {rc}")
+    LAUNCHES["conv_norm_act"] += 1
+    return out, ops, g
+
+
+def _launch_conv_transpose(x, w, scale, bias, o: _Opts):
+    """One launch of the conv-transpose kernel; returns as :func:`_launch_conv`."""
+    _check_common("conv_transpose_norm_act", x, w, scale, bias, o.kind, o.act)
+    if o.stride != 2 or w.shape[0] != 4 or w.shape[1] != 4:
+        raise ValueError(
+            f"conv_transpose_norm_act: the kernel takes k=4, stride=2, got "
+            f"k={tuple(w.shape[:2])}, stride={o.stride}"
+        )
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    lib = build.load("conv_transpose_norm_act")
+    slots = 4 * -(-(h * wd) // lib.acg_tile_rows(_DTYPES[x.dtype], cout))
+    wk, g, ops = _epilogue_operands(x, w, scale, bias, o.kind, o.groups, 4 * h * wd, slots)
+    out = torch.empty((b, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
+    ptrs = [_ptr(t) for t in ops]
+    rc = lib.acg_conv_transpose_norm_act(
+        x.data_ptr(), wk.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), *ptrs[2:],
+        _DTYPES[x.dtype], b, h, wd, cin, cout,
+        int(o.kind == "group"), g, float(o.eps), ACTIVATIONS.index(o.act), float(o.leak),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"conv_transpose_norm_act kernel launch failed: CUDA error {rc}")
+    LAUNCHES["conv_transpose_norm_act"] += 1
+    return out, ops, g
+
+
+def _launch(x, w, scale, bias, o: _Opts):
+    return (_launch_conv_transpose if o.transpose else _launch_conv)(x, w, scale, bias, o)
+
+
+def _residuals(out, ops, groups):
+    """(out, y, stats): y the float32 pre-norm output (B, OH, OW, Cout) and
+    stats the (2, B, groups) mean / rstd, both None for kind "none"."""
+    y, stats = ops[2], ops[5]
+    if y is None:
+        return out, None, None
+    return out, y.view(out.shape), stats.view(2, out.shape[0], groups)
+
+
+def _forward(x, w, scale, bias, o: _Opts):
+    """(out, y, stats) for the backward. On CUDA the kernel's own; on the
+    CPU the plain version's, with y the conv output in the compute dtype and
+    stats None."""
+    if x.is_cuda:
+        return _residuals(*_launch(x, w, scale, bias, o))
+    out, y = _plain(x, w, scale, bias, o)
+    return out, (y if o.kind == "group" else None), None
+
+
+def _forward_no_grad(x, w, scale, bias, o: _Opts):
+    """The output alone: the serving path keeps no residual."""
+    if x.is_cuda:
+        return _launch(x, w, scale, bias, o)[0]
+    return _plain(x, w, scale, bias, o)[0]
+
+
+def _conv_backward(dy, x, w, o: _Opts, need_x: bool, need_w: bool):
+    """(dx NHWC, dw HWIO) of the block's conv for the cotangent ``dy`` of its
+    output, through ``aten.convolution_backward`` in the compute dtype. Only
+    the backward convolutions that ``need_x`` / ``need_w`` ask for run."""
+    if not (need_x or need_w):
+        return None, None
+    dt = x.dtype
+    cl = torch.channels_last
+    gy = dy.to(dt).permute(0, 3, 1, 2)
+    xn = x.permute(0, 3, 1, 2)
+    mask = [need_x, need_w, False]
+    if o.transpose:
+        # F.conv_transpose2d(padding=1) equals lax.conv_transpose(SAME) with
+        # the kernel flipped in both spatial axes, laid out (I, O, kh, kw).
+        wt = w.to(dt).flip(0, 1).permute(2, 3, 0, 1).contiguous(memory_format=cl)
+        dxn, dwn, _ = _convolution_backward(
+            gy, xn, wt, None, [2, 2], [1, 1], [1, 1], True, [0, 0], 1, mask
+        )
+        dw = dwn.flip(2, 3).permute(2, 3, 0, 1) if need_w else None
+    else:
+        h, wd = x.shape[1], x.shape[2]
+        kh, kw = w.shape[0], w.shape[1]
+        _, plo, phi = same_pad(h, kh, o.stride)
+        _, qlo, qhi = same_pad(wd, kw, o.stride)
+        # SAME on odd sizes pads one more after than before; convolution
+        # takes symmetric padding, so the extra row / column is explicit.
+        if (phi, qhi) != (plo, qlo):
+            xn = F.pad(xn, (0, qhi - qlo, 0, phi - plo))
+        wo = w.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl)
+        dxn, dwn, _ = _convolution_backward(
+            gy, xn, wo, None, [o.stride] * 2, [plo, qlo], [1, 1], False, [0, 0], 1, mask
+        )
+        if need_x:
+            dxn = dxn[:, :, :h, :wd]
+        dw = dwn.permute(2, 3, 1, 0) if need_w else None
+    dx = dxn.permute(0, 2, 3, 1).contiguous().to(x.dtype) if need_x else None
+    if dw is not None:
+        dw = dw.to(w.dtype).contiguous()
+    return dx, dw
+
+
+class _ConvBlockFn(torch.autograd.Function):
+    """conv(-transpose) -> norm -> activation with the saved-residual backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, o: _Opts):
+        out, y, stats = _forward(x, w, scale, bias, o)
+        ctx.opts = o
+        ctx.save_for_backward(x, w, scale, out, y, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        o = ctx.opts
+        x, w, scale, out, y, stats = ctx.saved_tensors
+        need_x, need_w, need_s, need_b = ctx.needs_input_grad[:4]
+        g = g.contiguous()
+        dscale = None
+        if o.kind == "group":
+            if scale is None:
+                scale = torch.ones(out.shape[-1], device=out.device)
+            mean, rstd = (None, None) if stats is None else stats.unbind(0)
+            dy, dscale, dbias = gn_bwd.gn_act_bwd(
+                y, scale, out, g, mean, rstd,
+                groups=o.groups, eps=o.eps, act=o.act, leak=o.leak,
+            )
+        else:
+            dpre = act_bwd(g.float(), out.float(), o.act, o.leak)
+            dbias = dpre.sum(dim=(0, 1, 2))
+            dy = dpre.to(out.dtype)
+        dx, dw = _conv_backward(dy, x, w, o, need_x, need_w)
+        return dx, dw, dscale if need_s else None, dbias if need_b else None, None
+
+
+class ConvNormActFn(_ConvBlockFn):
+    """Autograd of :func:`conv_norm_act` (``ops/pallas/conv.py`` custom VJP)."""
+
+
+class ConvTransposeNormActFn(_ConvBlockFn):
+    """Autograd of :func:`conv_transpose_norm_act`."""
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
 def conv_norm_act(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -124,33 +320,10 @@ def conv_norm_act(
     leak: float = 0.2,
 ) -> torch.Tensor:
     """SAME conv (NHWC x HWIO) -> GroupNorm or bias -> affine -> activation."""
-    if not x.is_cuda:
-        return conv_norm_act_plain(
-            x, w, scale, bias, stride=stride, kind=kind, groups=groups, eps=eps, act=act, leak=leak
-        )
-    _check_common("conv_norm_act", x, w, scale, bias, kind, act)
-    kh, kw = w.shape[0], w.shape[1]
-    if stride not in (1, 2) or kh != kw:
-        raise ValueError(f"conv_norm_act: want a square kernel and stride 1 or 2, got {kh}x{kw}/{stride}")
-    b, h, wd, cin = x.shape
-    cout = w.shape[3]
-    oh, pad_h, _ = same_pad(h, kh, stride)
-    ow, pad_w, _ = same_pad(wd, kw, stride)
-    lib = build.load("conv_norm_act")
-    slots = -(-(oh * ow) // lib.acg_tile_rows(_DTYPES[x.dtype], cout))
-    wk, g, ops = _epilogue_operands(x, w, scale, bias, kind, groups, oh * ow, slots)
-    out = torch.empty((b, oh, ow, cout), device=x.device, dtype=x.dtype)
-    ptrs = [_ptr(t) for t in ops]
-    rc = lib.acg_conv_norm_act(
-        x.data_ptr(), wk.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), *ptrs[2:],
-        _DTYPES[x.dtype], b, h, wd, cin, oh, ow, cout, kh, kw, stride, pad_h, pad_w,
-        int(kind == "group"), g, float(eps), ACTIVATIONS.index(act), float(leak),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if rc:
-        raise RuntimeError(f"conv_norm_act kernel launch failed: CUDA error {rc}")
-    LAUNCHES["conv_norm_act"] += 1
-    return out
+    o = _Opts(False, stride, kind, groups, float(eps), act, float(leak))
+    if _needs_grad(x, w, scale, bias):
+        return ConvNormActFn.apply(x, w, scale, bias, o)
+    return _forward_no_grad(x, w, scale, bias, o)
 
 
 def conv_transpose_norm_act(
@@ -167,30 +340,7 @@ def conv_transpose_norm_act(
     leak: float = 0.2,
 ) -> torch.Tensor:
     """k=4 / stride-2 SAME conv-transpose -> GroupNorm or bias -> affine -> act."""
-    if not x.is_cuda:
-        return conv_transpose_norm_act_plain(
-            x, w, scale, bias, stride=stride, kind=kind, groups=groups, eps=eps, act=act, leak=leak
-        )
-    _check_common("conv_transpose_norm_act", x, w, scale, bias, kind, act)
-    if stride != 2 or w.shape[0] != 4 or w.shape[1] != 4:
-        raise ValueError(
-            f"conv_transpose_norm_act: the kernel takes k=4, stride=2, got "
-            f"k={tuple(w.shape[:2])}, stride={stride}"
-        )
-    b, h, wd, cin = x.shape
-    cout = w.shape[3]
-    lib = build.load("conv_transpose_norm_act")
-    slots = 4 * -(-(h * wd) // lib.acg_tile_rows(_DTYPES[x.dtype], cout))
-    wk, g, ops = _epilogue_operands(x, w, scale, bias, kind, groups, 4 * h * wd, slots)
-    out = torch.empty((b, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
-    ptrs = [_ptr(t) for t in ops]
-    rc = lib.acg_conv_transpose_norm_act(
-        x.data_ptr(), wk.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), *ptrs[2:],
-        _DTYPES[x.dtype], b, h, wd, cin, cout,
-        int(kind == "group"), g, float(eps), ACTIVATIONS.index(act), float(leak),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if rc:
-        raise RuntimeError(f"conv_transpose_norm_act kernel launch failed: CUDA error {rc}")
-    LAUNCHES["conv_transpose_norm_act"] += 1
-    return out
+    o = _Opts(True, stride, kind, groups, float(eps), act, float(leak))
+    if _needs_grad(x, w, scale, bias):
+        return ConvTransposeNormActFn.apply(x, w, scale, bias, o)
+    return _forward_no_grad(x, w, scale, bias, o)

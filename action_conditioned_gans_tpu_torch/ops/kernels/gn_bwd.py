@@ -1,0 +1,111 @@
+"""Wrapper of the GroupNorm+activation backward Hopper kernel.
+
+Port of the JAX package's ``ops/pallas/gn_bwd.py`` (``gn_act_bwd_pallas``):
+the closed-form gradient of GroupNorm -> affine -> activation from the
+forward's saved statistics, ``csrc/gn_act_bwd.cu``. It is the backward of
+every GroupNorm layer on the training path: the fused conv kernels' autograd
+Functions (``ops/kernels/conv.py``) call it with the pre-norm ``y`` and the
+(mean, rstd) their forward already computed.
+
+For a CUDA tensor :func:`gn_act_bwd` launches the kernel or raises; for a CPU
+tensor it computes the plain version, ``reference.gn_act_grads``.
+``LAUNCHES["gn_act_bwd"]`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from action_conditioned_gans_tpu_torch.ops import reference
+from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, resolve_groups
+from action_conditioned_gans_tpu_torch.ops.kernels import build
+
+LAUNCHES = {"gn_act_bwd": 0}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    LAUNCHES["gn_act_bwd"] = 0
+
+
+def gn_act_bwd_plain(
+    y, scale, out, g, mean=None, rstd=None, *, groups=32, eps=1e-5, act="lrelu", leak=0.2
+):
+    """(dy in ``out``'s dtype, dscale, dbias) through ``reference.gn_act_grads``."""
+    dy, dscale, dbias = reference.gn_act_grads(
+        y, scale, out, g, mean, rstd, groups=groups, eps=eps, act=act, leak=leak
+    )
+    return dy.to(out.dtype), dscale, dbias
+
+
+def gn_act_bwd(
+    y: torch.Tensor,
+    scale: torch.Tensor,
+    out: torch.Tensor,
+    g: torch.Tensor,
+    mean: Optional[torch.Tensor] = None,
+    rstd: Optional[torch.Tensor] = None,
+    *,
+    groups: int = 32,
+    eps: float = 1e-5,
+    act: str = "lrelu",
+    leak: float = 0.2,
+) -> tuple:
+    """(dy, dscale, dbias) of GroupNorm -> affine -> activation.
+
+    ``y`` (B, H, W, C) is the pre-norm input, ``out`` the block's output and
+    ``g`` its cotangent, both in the compute dtype; ``mean``/``rstd`` are the
+    forward's (B, groups) float32 statistics. ``dy`` comes back in ``out``'s
+    dtype, ``dscale``/``dbias`` (C,) in float32. The kernel needs ``mean`` and
+    ``rstd``; the CPU path recomputes them when they are absent.
+    """
+    if not y.is_cuda:
+        return gn_act_bwd_plain(
+            y, scale, out, g, mean, rstd, groups=groups, eps=eps, act=act, leak=leak
+        )
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    if act == "lrelu" and leak < 0:
+        raise ValueError("the saved-output activation backward needs leak >= 0")
+    if y.dim() != 4 or y.dtype != torch.float32:
+        raise ValueError(f"gn_act_bwd: y must be float32 (B, H, W, C), got {y.dtype} {tuple(y.shape)}")
+    if out.dtype not in _DTYPES or g.dtype != out.dtype:
+        raise TypeError(f"gn_act_bwd: out and g must share float32 or bfloat16, got {out.dtype}, {g.dtype}")
+    if out.shape != y.shape or g.shape != y.shape:
+        raise ValueError("gn_act_bwd: y, out and g must share one shape")
+    b, h, w, c = y.shape
+    grp = resolve_groups(c, groups)
+    if mean is None or rstd is None:
+        raise ValueError("gn_act_bwd: the kernel takes the forward's mean and rstd")
+    if tuple(mean.shape) != (b, grp) or tuple(rstd.shape) != (b, grp) or tuple(scale.shape) != (c,):
+        raise ValueError(
+            f"gn_act_bwd: want mean, rstd ({b}, {grp}) and scale ({c},), got "
+            f"{tuple(mean.shape)}, {tuple(rstd.shape)}, {tuple(scale.shape)}"
+        )
+    ts = (y, out, g, scale, mean, rstd)
+    if any(t.device != y.device for t in ts):
+        raise ValueError(f"gn_act_bwd: all tensors must be on {y.device}")
+    if not all(t.is_contiguous() for t in (y, out, g, mean, rstd)):
+        raise ValueError("gn_act_bwd: y, out, g, mean and rstd must be contiguous")
+    if mean.dtype != torch.float32 or rstd.dtype != torch.float32:
+        raise TypeError("gn_act_bwd: mean and rstd must be float32")
+    lib = build.load("gn_act_bwd")
+    scale_f = scale.float().contiguous()
+    dx = torch.empty_like(out)
+    dscale = torch.empty(c, device=y.device, dtype=torch.float32)
+    dbias = torch.empty_like(dscale)
+    scratch = torch.empty(
+        lib.acg_gn_bwd_scratch_floats(b, h * w, c, grp), device=y.device, dtype=torch.float32
+    )
+    rc = lib.acg_gn_act_bwd(
+        y.data_ptr(), out.data_ptr(), g.data_ptr(), scale_f.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), scratch.data_ptr(),
+        _DTYPES[out.dtype], b, h * w, c, grp, ACTIVATIONS.index(act), float(leak),
+        torch.cuda.current_stream(y.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"gn_act_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gn_act_bwd"] += 1
+    return dx, dscale, dbias

@@ -1,4 +1,6 @@
-"""Plain PyTorch layer ops: the port of the JAX package's ``ops/xla.py``.
+"""Plain PyTorch layer ops: the port of the JAX package's ``ops/xla.py``, and
+of ``ops/gn.py``'s closed-form GroupNorm+activation backward
+(:func:`gn_act_grads`).
 
 These are what runs on the CPU and the oracle the Hopper kernels are held
 to. The layout at every function is the JAX package's: NHWC activations and
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from action_conditioned_gans_tpu_torch.ops.common import (
+    act_bwd,
     apply_act,
     resolve_groups,
     same_pad,
@@ -100,3 +103,55 @@ def norm_act(
     if bias is not None:
         y = y + bias.float()
     return apply_act(y.to(dtype), act, leak)
+
+
+def _group_mean(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per-(sample, group) mean of (N, H, W, C), broadcast to (N, 1, 1, C)."""
+    n, h, w_, c = t.shape
+    m = t.reshape(n, h, w_, groups, c // groups).mean(dim=(1, 2, 4), keepdim=True)
+    return m.expand(n, 1, 1, groups, c // groups).reshape(n, 1, 1, c)
+
+
+def gn_act_grads(
+    y: torch.Tensor,
+    scale: torch.Tensor,
+    out: torch.Tensor,
+    g: torch.Tensor,
+    mean: Optional[torch.Tensor] = None,
+    rstd: Optional[torch.Tensor] = None,
+    *,
+    groups: int,
+    eps: float = 1e-5,
+    act: str = "lrelu",
+    leak: float = 0.2,
+) -> tuple:
+    """Closed-form (dy, dscale, dbias) of GroupNorm -> affine -> activation.
+
+    ``y`` is the pre-norm input (N, H, W, C), ``out`` the block's output and
+    ``g`` its cotangent. ``mean``/``rstd`` (N, groups) are the forward's
+    statistics; when absent they are recomputed from ``y`` with the two-pass
+    variance. Math in float32; ``dy`` is cast to ``y``'s dtype, ``dscale`` and
+    ``dbias`` stay float32.
+
+        xhat = (y - mean) * rstd      dpre = act'(out) * g
+        dbias = sum dpre              dscale = sum dpre * xhat
+        h = dpre * scale              dy = rstd * (h - mean_G(h) - xhat * mean_G(h * xhat))
+    """
+    n, hh, ww, c = y.shape
+    groups = resolve_groups(c, groups)
+    cg = c // groups
+    yf = y.float()
+    if mean is None or rstd is None:
+        yg = yf.reshape(n, hh, ww, groups, cg)
+        mean = yg.mean(dim=(1, 2, 4))
+        var = (yg - mean[:, None, None, :, None]).square().mean(dim=(1, 2, 4))
+        rstd = torch.rsqrt(var + eps)
+    mean_c = mean.float().repeat_interleave(cg, dim=1).reshape(n, 1, 1, c)
+    rstd_c = rstd.float().repeat_interleave(cg, dim=1).reshape(n, 1, 1, c)
+    xhat = (yf - mean_c) * rstd_c
+    dpre = act_bwd(g.float(), out.float(), act, leak)
+    dbias = dpre.sum(dim=(0, 1, 2))
+    dscale = (dpre * xhat).sum(dim=(0, 1, 2))
+    h = dpre * scale.float()
+    dy = rstd_c * (h - _group_mean(h, groups) - xhat * _group_mean(h * xhat, groups))
+    return dy.to(y.dtype), dscale, dbias

@@ -87,8 +87,7 @@ def test_config_dtype_is_a_torch_dtype():
 
 
 @pytest.mark.parametrize(
-    "knob", [dict(gn_backward="fused"), dict(wgrad="patches"), dict(deconv="subpixel"),
-             dict(conv0="s2d")],
+    "knob", [dict(wgrad="patches"), dict(deconv="subpixel"), dict(conv0="s2d")],
 )
 def test_unported_engine_knobs_raise_at_use(knob, tmp_path):
     cfg = tcfg.ModelConfig(**TINY, **knob)

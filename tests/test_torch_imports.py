@@ -33,7 +33,10 @@ def test_the_scan_sees_the_whole_port():
     rel = {os.path.relpath(p, REPO) for p in port_files()}
     assert "chip_smoke.py" in rel
     assert "action_conditioned_gans_tpu_torch/ops/kernels/conv.py" in rel
-    assert len(rel) >= 15
+    for module in ("ops/kernels/gn_bwd.py", "models/discriminator.py", "train/losses.py",
+                   "train/state.py", "train/rollout.py", "train/step.py"):
+        assert f"action_conditioned_gans_tpu_torch/{module}" in rel
+    assert len(rel) >= 22
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
