@@ -61,8 +61,10 @@ class ModelConfig:
     # Activation dtype; parameters stay float32.
     compute_dtype: str = "bfloat16"
 
-    # "xla" or "pallas" in the JAX package. The port accepts both and lets
-    # the tensor's device decide: Hopper kernels on CUDA, plain ops on CPU.
+    # "xla" or "pallas" in the JAX package. The port accepts both and runs
+    # the "pallas" dispatch for either: each layer is routed as the JAX
+    # Pallas backend routes it (ops/envelope.py), then the tensor's device
+    # decides: Hopper kernels on CUDA, plain ops on CPU.
     backend: str = "xla"
 
     # Gradient and rewrite engines of the JAX package (see its config.py).

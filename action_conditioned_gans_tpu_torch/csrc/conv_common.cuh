@@ -25,38 +25,21 @@
 //            (sample, phase), writes the pre-norm y (float32) to scratch at
 //            its final NHWC position and writes the tile's per-channel sum
 //            and sum of squares. Tiles never span two samples.
-//   phase 2  gn_stats_kernel: one block per sample reduces those partials
-//            in a fixed order into per-group mean and rstd
+//   phase 2  gn_stats_kernel (gn_common.cuh): one block per sample reduces
+//            those partials in a fixed order into per-group mean and rstd
 //            (E[x^2] - mean^2, clamped at 0, as the TPU kernel computes).
-//   phase 3  gn_apply_kernel: normalise, affine, activation in float32, cast.
+//   phase 3  gn_apply_kernel (gn_common.cuh): normalise, affine,
+//            activation in float32, cast.
 // No atomics anywhere: the output does not depend on scheduling order.
 // With no norm, bias + activation is fused into phase 1 and nothing else
 // runs.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "gn_common.cuh"
 
 namespace acg {
-
-constexpr int NT = 256;  // threads per block in every kernel here
-
-enum Act { ACT_NONE = 0, ACT_LRELU = 1, ACT_RELU = 2, ACT_TANH = 3 };
-
-__device__ __forceinline__ float apply_act(float v, int act, float leak) {
-  if (act == ACT_LRELU) return v >= 0.f ? v : v * leak;
-  if (act == ACT_RELU) return fmaxf(v, 0.f);
-  if (act == ACT_TANH) return tanhf(v);
-  return v;
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 struct Geom {
   int B, H, W, Cin;    // input
@@ -399,67 +382,6 @@ void launch_wmma(const Geom& g, dim3 grid, cudaStream_t stream, const void* x, c
         xb, wb, bf, ob, y, psum, psq, g, group_norm, act, leak);
 }
 
-// -- phases 2 and 3 ---------------------------------------------------------------
-
-// Phase 2. Grid: B blocks of NT threads. Dynamic shared memory: 2*C floats.
-// stats[b, grp] = mean, stats[B*G + b*G + grp] = rstd.
-__global__ void __launch_bounds__(NT) gn_stats_kernel(
-    const float* __restrict__ psum, const float* __restrict__ psq, float* __restrict__ stats,
-    int B, int C, int slots, int groups, int pixels, float eps) {
-  extern __shared__ float sm[];
-  float* ch_s = sm;
-  float* ch_q = sm + C;
-  const int b = blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s = 0.f, q = 0.f;
-    for (int t = 0; t < slots; ++t) {
-      s += psum[((size_t)b * slots + t) * C + c];
-      q += psq[((size_t)b * slots + t) * C + c];
-    }
-    ch_s[c] = s;
-    ch_q[c] = q;
-  }
-  __syncthreads();
-  const int cg = C / groups;
-  const float count = (float)pixels * (float)cg;
-  for (int grp = threadIdx.x; grp < groups; grp += blockDim.x) {
-    float s = 0.f, q = 0.f;
-    for (int c = grp * cg; c < (grp + 1) * cg; ++c) {
-      s += ch_s[c];
-      q += ch_q[c];
-    }
-    const float mean = s / count;
-    const float var = fmaxf(q / count - mean * mean, 0.f);
-    stats[(size_t)b * groups + grp] = mean;
-    stats[(size_t)B * groups + (size_t)b * groups + grp] = rsqrtf(var + eps);
-  }
-}
-
-constexpr int APPLY_CHUNK = 4096;  // elements per phase-3 block
-
-// Phase 3. Grid: (ceil(pixels*C / APPLY_CHUNK), B). Block: NT threads.
-template <typename T>
-__global__ void __launch_bounds__(NT) gn_apply_kernel(
-    const float* __restrict__ y, const float* __restrict__ stats,
-    const float* __restrict__ scale, const float* __restrict__ bias, T* __restrict__ out,
-    int B, int C, int groups, int pixels, int act, float leak) {
-  const int b = blockIdx.y;
-  const int cg = C / groups;
-  const size_t n_el = (size_t)pixels * C;
-  const size_t start = (size_t)blockIdx.x * APPLY_CHUNK;
-  const size_t end = start + APPLY_CHUNK < n_el ? start + APPLY_CHUNK : n_el;
-  const float* mean = stats + (size_t)b * groups;
-  const float* rstd = stats + (size_t)B * groups + (size_t)b * groups;
-  const float* yb = y + (size_t)b * n_el;
-  T* ob = out + (size_t)b * n_el;
-  for (size_t i = start + threadIdx.x; i < end; i += blockDim.x) {
-    const int c = (int)(i % C);
-    const int grp = c / cg;
-    const float v = (yb[i] - mean[grp]) * rstd[grp] * scale[c] + bias[c];
-    ob[i] = from_f32<T>(apply_act(v, act, leak));
-  }
-}
-
 // Runs phase 1, and phases 2-3 when group_norm is set. Returns the first
 // launch error, 0 on success. g.tiles is set here from tile_rows. Scratch
 // (group_norm only): y holds B*OH*OW*Cout floats, psum and psq
@@ -496,25 +418,13 @@ int launch_conv_norm_act(Geom g, int bf16, const void* x, const void* w, const v
 
   const int pixels = g.OH * g.OW;
   const int slots = g.phases * g.tiles;
-  const size_t smem = 2 * (size_t)g.Cout * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidConfiguration;
-  gn_stats_kernel<<<g.B, NT, smem, stream>>>(ps, pq, (float*)stats, g.B, g.Cout, slots, groups,
-                                             pixels, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t n_el = (size_t)pixels * g.Cout;
-  const dim3 agrid((unsigned)((n_el + APPLY_CHUNK - 1) / APPLY_CHUNK), g.B);
   if (bf16)
-    gn_apply_kernel<__nv_bfloat16><<<agrid, NT, 0, stream>>>(
-        yf, (const float*)stats, (const float*)scale, (const float*)bias, (__nv_bfloat16*)out,
-        g.B, g.Cout, groups, pixels, act, leak);
-  else
-    gn_apply_kernel<float><<<agrid, NT, 0, stream>>>(yf, (const float*)stats,
-                                                     (const float*)scale, (const float*)bias,
-                                                     (float*)out, g.B, g.Cout, groups, pixels,
-                                                     act, leak);
-  return (int)cudaGetLastError();
+    return launch_gn_stats_apply<float, __nv_bfloat16>(
+        yf, ps, pq, (float*)stats, (const float*)scale, (const float*)bias, (__nv_bfloat16*)out,
+        g.B, g.Cout, slots, groups, pixels, eps, act, leak, stream);
+  return launch_gn_stats_apply<float, float>(yf, ps, pq, (float*)stats, (const float*)scale,
+                                             (const float*)bias, (float*)out, g.B, g.Cout, slots,
+                                             groups, pixels, eps, act, leak, stream);
 }
 
 }  // namespace acg

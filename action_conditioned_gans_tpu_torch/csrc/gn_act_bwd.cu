@@ -9,10 +9,13 @@
 //   dbias = sum dpre                  dscale = sum dpre * xhat
 //   h = dpre * scale                  dx = rstd * (h - mean_G(h) - xhat * mean_G(h * xhat))
 //
-// Layouts: y (float32, the fused conv kernels' pre-norm scratch), out, g and
-// dx (compute dtype) are canonical NHWC viewed as (B, HW, C); the
-// conv-transpose kernel writes its y at the depth-to-space position, so one
-// kernel serves both layer kinds with grp = c / (C / groups). mean and rstd
+// Layouts: y, out, g and dx are canonical NHWC viewed as (B, HW, C). y is
+// the fused conv kernels' float32 pre-norm scratch, or, behind the
+// standalone GroupNorm kernel, its input in the compute dtype (bfloat16 or
+// float32, read as it is: no extra pass casts it); out, g and dx are in the
+// compute dtype. The conv-transpose kernel writes its y at the
+// depth-to-space position, so one kernel serves both layer kinds with
+// grp = c / (C / groups). mean and rstd
 // are (B, groups) float32, the two halves of the forward's stats scratch.
 //
 // What bounds it on an H100: bytes. It does ~20 operations per element and
@@ -35,47 +38,36 @@
 //           dtype.
 // y, out and g are read twice (passes 1 and 3); a fused single-read design
 // for samples that fit shared memory is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gn_common.cuh"
 
 namespace {
+
+using acg::from_f32;
+using acg::to_f32;
 
 constexpr int NT = 256;          // threads per block
 constexpr int WARPS = NT / 32;   // rows walked in parallel in pass 1
 constexpr int TILE_ROWS = 64;    // rows (pixels) per pass-1 block
 constexpr int DX_CHUNK = 4096;   // elements per pass-3 block
 
-// The port's ACTIVATIONS order: none, lrelu, relu, tanh.
-enum Act { ACT_NONE = 0, ACT_LRELU = 1, ACT_RELU = 2, ACT_TANH = 3 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 // act'(pre) * g from the saved output (ops/gn.py act_bwd): strict mask at
 // leak 0, like relu's.
 __device__ __forceinline__ float act_bwd(float g, float out, int act, float leak) {
-  if (act == ACT_LRELU) {
+  if (act == acg::ACT_LRELU) {
     if (leak == 0.f) return out > 0.f ? g : 0.f;
     return out >= 0.f ? g : g * leak;
   }
-  if (act == ACT_RELU) return out > 0.f ? g : 0.f;
-  if (act == ACT_TANH) return g * (1.f - out * out);
+  if (act == acg::ACT_RELU) return out > 0.f ? g : 0.f;
+  if (act == acg::ACT_TANH) return g * (1.f - out * out);
   return g;
 }
 
 inline int row_tiles(int hw) { return (hw + TILE_ROWS - 1) / TILE_ROWS; }
 
 // Pass 1. Grid (tiles, B). p1, p2: (B, tiles, C).
-template <typename T>
+template <typename TY, typename T>
 __global__ void __launch_bounds__(NT) gn_bwd_partials_kernel(
-    const float* __restrict__ y, const T* __restrict__ out, const T* __restrict__ g,
+    const TY* __restrict__ y, const T* __restrict__ out, const T* __restrict__ g,
     const float* __restrict__ mean, const float* __restrict__ rstd, float* __restrict__ p1,
     float* __restrict__ p2, int HW, int C, int groups, int act, float leak) {
   __shared__ float s1[WARPS][33];
@@ -97,7 +89,7 @@ __global__ void __launch_bounds__(NT) gn_bwd_partials_kernel(
         const size_t i = base + (size_t)r * C + c;
         const float d = act_bwd(to_f32(g[i]), to_f32(out[i]), act, leak);
         a1 += d;
-        a2 += d * ((y[i] - mu) * rs);
+        a2 += d * ((to_f32(y[i]) - mu) * rs);
       }
     }
     s1[warp][lane] = a1;
@@ -170,9 +162,9 @@ __global__ void __launch_bounds__(NT) gn_bwd_batch_sum_kernel(
 }
 
 // Pass 3. Grid (ceil(HW*C / DX_CHUNK), B).
-template <typename T>
+template <typename TY, typename T>
 __global__ void __launch_bounds__(NT) gn_bwd_dx_kernel(
-    const float* __restrict__ y, const T* __restrict__ out, const T* __restrict__ g,
+    const TY* __restrict__ y, const T* __restrict__ out, const T* __restrict__ g,
     const float* __restrict__ scale, const float* __restrict__ mean,
     const float* __restrict__ rstd, const float* __restrict__ mh, const float* __restrict__ mhx,
     T* __restrict__ dx, int HW, int C, int groups, int act, float leak) {
@@ -190,14 +182,14 @@ __global__ void __launch_bounds__(NT) gn_bwd_dx_kernel(
     const int c = (int)(i % C);
     const int grp = c / cg;
     const size_t o = base + i;
-    const float xhat = (y[o] - mu[grp]) * rs[grp];
+    const float xhat = (to_f32(y[o]) - mu[grp]) * rs[grp];
     const float h = act_bwd(to_f32(g[o]), to_f32(out[o]), act, leak) * scale[c];
     dx[o] = from_f32<T>(rs[grp] * (h - m1[grp] - xhat * m2[grp]));
   }
 }
 
-template <typename T>
-int launch(const float* y, const T* out, const T* g, const float* scale, const float* mean,
+template <typename TY, typename T>
+int launch(const TY* y, const T* out, const T* g, const float* scale, const float* mean,
            const float* rstd, T* dx, float* dscale, float* dbias, float* scratch, int B, int HW,
            int C, int groups, int act, float leak, cudaStream_t stream) {
   const int tiles = row_tiles(HW);
@@ -210,8 +202,8 @@ int launch(const float* y, const T* out, const T* g, const float* scale, const f
   float* mh = dscale_b + (size_t)B * C;
   float* mhx = mh + (size_t)B * groups;
 
-  gn_bwd_partials_kernel<T><<<dim3(tiles, B), NT, 0, stream>>>(y, out, g, mean, rstd, p1, p2,
-                                                               HW, C, groups, act, leak);
+  gn_bwd_partials_kernel<TY, T><<<dim3(tiles, B), NT, 0, stream>>>(
+      y, out, g, mean, rstd, p1, p2, HW, C, groups, act, leak);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gn_bwd_sample_kernel<<<B, NT, smem, stream>>>(p1, p2, scale, dbias_b, dscale_b, mh, mhx, HW, C,
@@ -224,8 +216,8 @@ int launch(const float* y, const T* out, const T* g, const float* scale, const f
   if (err != cudaSuccess) return (int)err;
   const size_t n_el = (size_t)HW * C;
   const dim3 grid((unsigned)((n_el + DX_CHUNK - 1) / DX_CHUNK), B);
-  gn_bwd_dx_kernel<T><<<grid, NT, 0, stream>>>(y, out, g, scale, mean, rstd, mh, mhx, dx, HW, C,
-                                               groups, act, leak);
+  gn_bwd_dx_kernel<TY, T><<<grid, NT, 0, stream>>>(y, out, g, scale, mean, rstd, mh, mhx, dx, HW,
+                                                   C, groups, act, leak);
   return (int)cudaGetLastError();
 }
 
@@ -237,18 +229,28 @@ extern "C" long long acg_gn_bwd_scratch_floats(int B, int HW, int C, int groups)
   return 2LL * B * row_tiles(HW) * C + 2LL * B * C + 2LL * B * groups;
 }
 
-// Returns the first launch error, 0 on success.
+// bf16: out, g and dx in bfloat16 (else float32); y_bf16: y in bfloat16 too
+// (else float32; a bfloat16 y needs bf16). Returns the first launch error, 0
+// on success.
 extern "C" int acg_gn_act_bwd(const void* y, const void* out, const void* g, const void* scale,
                               const void* mean, const void* rstd, void* dx, void* dscale,
-                              void* dbias, void* scratch, int bf16, int B, int HW, int C,
-                              int groups, int act, float leak, void* stream) {
+                              void* dbias, void* scratch, int y_bf16, int bf16, int B, int HW,
+                              int C, int groups, int act, float leak, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const auto* sc = (const float*)scale;
+  const auto* mu = (const float*)mean;
+  const auto* rs = (const float*)rstd;
+  auto* ds = (float*)dscale;
+  auto* db = (float*)dbias;
+  auto* sp = (float*)scratch;
+  using bf = __nv_bfloat16;
+  if (y_bf16 && !bf16) return (int)cudaErrorInvalidValue;
+  if (y_bf16)
+    return launch<bf, bf>((const bf*)y, (const bf*)out, (const bf*)g, sc, mu, rs, (bf*)dx, ds,
+                          db, sp, B, HW, C, groups, act, leak, s);
   if (bf16)
-    return launch<__nv_bfloat16>(
-        (const float*)y, (const __nv_bfloat16*)out, (const __nv_bfloat16*)g, (const float*)scale,
-        (const float*)mean, (const float*)rstd, (__nv_bfloat16*)dx, (float*)dscale,
-        (float*)dbias, (float*)scratch, B, HW, C, groups, act, leak, s);
-  return launch<float>((const float*)y, (const float*)out, (const float*)g, (const float*)scale,
-                       (const float*)mean, (const float*)rstd, (float*)dx, (float*)dscale,
-                       (float*)dbias, (float*)scratch, B, HW, C, groups, act, leak, s);
+    return launch<float, bf>((const float*)y, (const bf*)out, (const bf*)g, sc, mu, rs, (bf*)dx,
+                             ds, db, sp, B, HW, C, groups, act, leak, s);
+  return launch<float, float>((const float*)y, (const float*)out, (const float*)g, sc, mu, rs,
+                              (float*)dx, ds, db, sp, B, HW, C, groups, act, leak, s);
 }

@@ -1,9 +1,17 @@
-"""Layer ops the models call: the port of the JAX package's ``ops/api.py``.
+"""Layer ops the models call: the port of the JAX package's ``ops/api.py`` as
+it runs with ``backend="pallas"``.
 
-The JAX package picks Pallas or XLA with a ``backend`` argument. Here the
-tensor's device decides: a CUDA tensor goes to the Hopper kernel of the op
-or the call raises; a CPU tensor takes the plain version. Nothing falls back
-from a kernel to the plain version.
+Each conv block is routed as the reference routes it (``ops/envelope.py``):
+"fused" layers run one fused conv kernel; "split" layers run the plain conv
+(cuDNN on the card, XLA in the reference, outside any kernel of either) and
+then :func:`norm_act`, whose GroupNorm goes to the standalone
+GroupNorm+activation kernel. The route depends on shapes and dtype only, so
+it is the same on the CPU and on the card. ``ROUTES`` counts the routes
+taken.
+
+The tensor's device decides the rest: a CUDA tensor goes to the Hopper
+kernel of the op or the call raises; a CPU tensor takes the plain version.
+Nothing falls back from a kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -12,8 +20,16 @@ from typing import Optional
 
 import torch
 
-from action_conditioned_gans_tpu_torch.ops import reference
+from action_conditioned_gans_tpu_torch.ops import envelope, reference
 from action_conditioned_gans_tpu_torch.ops.kernels import conv as _conv
+from action_conditioned_gans_tpu_torch.ops.kernels import norm_act as _norm_act
+
+ROUTES = {"fused": 0, "split": 0}
+
+
+def reset_routes() -> None:
+    for name in ROUTES:
+        ROUTES[name] = 0
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -23,6 +39,16 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) ->
 
 def leaky_relu(x: torch.Tensor, leak: float = 0.2) -> torch.Tensor:
     return reference.leaky_relu(x, leak)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
+    """The plain SAME conv (the reference's XLA conv off the fused envelope)."""
+    return reference.conv2d(x, w, stride=stride)
+
+
+def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2) -> torch.Tensor:
+    """The plain SAME conv-transpose (k=4, stride 2)."""
+    return reference.conv2d_transpose(x, w, stride=stride)
 
 
 def norm_act(
@@ -36,11 +62,20 @@ def norm_act(
     act: str = "lrelu",
     leak: float = 0.2,
 ) -> torch.Tensor:
-    if x.is_cuda and kind == "group":
-        raise NotImplementedError(
-            "standalone GroupNorm+activation on CUDA needs the port of the "
-            "group_norm_act kernel (ops/pallas/norm_act.py), which is not ported yet"
-        )
+    """Normalization + affine + activation. GroupNorm inside the reference's
+    kernel envelope goes to the GroupNorm+activation kernel; kinds "none"
+    (bias, cast, activation) and "batch" are the plain composite, which no
+    kernel computes in the reference either."""
+    if kind == "group":
+        if envelope.group_norm_act_supported(x.shape):
+            return _norm_act.group_norm_act(x, scale, bias, groups=groups, eps=eps, act=act,
+                                            leak=leak)
+        if x.is_cuda:
+            raise NotImplementedError(
+                f"GroupNorm over x{tuple(x.shape)} is off the group_norm_act kernel's "
+                "envelope (C >= 32 and one sample's float32 plane, twice, within 10 MiB); "
+                "the reference runs XLA there and the port has no kernel for it"
+            )
     return reference.norm_act(
         x, scale, bias, kind=kind, groups=groups, eps=eps, act=act, leak=leak
     )
@@ -62,10 +97,15 @@ def conv_norm_act(
 ) -> torch.Tensor:
     """The conv(-transpose) -> norm -> activation block of both models.
 
-    When a gradient is needed the call goes through the autograd Functions
-    of ``ops/kernels/conv.py`` (``ConvNormActFn``, ``ConvTransposeNormActFn``);
-    otherwise straight to the kernel (CUDA) or the plain version (CPU)."""
-    fn = _conv.conv_transpose_norm_act if transpose else _conv.conv_norm_act
-    return fn(
-        x, w, scale, bias, stride=stride, kind=kind, groups=groups, eps=eps, act=act, leak=leak
-    )
+    On the fused route the call goes to ``ops/kernels/conv.py`` (through its
+    autograd Functions when a gradient is needed); on the split route to
+    :func:`conv2d` / :func:`conv2d_transpose` and then :func:`norm_act`."""
+    route = envelope.route(x.shape, w.shape, stride, transpose, kind, groups, x.dtype)
+    ROUTES[route] += 1
+    if route == "fused":
+        fn = _conv.conv_transpose_norm_act if transpose else _conv.conv_norm_act
+        return fn(
+            x, w, scale, bias, stride=stride, kind=kind, groups=groups, eps=eps, act=act, leak=leak
+        )
+    y = (conv2d_transpose if transpose else conv2d)(x, w, stride=stride)
+    return norm_act(y, scale, bias, kind=kind, groups=groups, eps=eps, act=act, leak=leak)

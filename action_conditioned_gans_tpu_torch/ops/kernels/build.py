@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
-KERNELS = ("conv_norm_act", "conv_transpose_norm_act", "gn_act_bwd")
+KERNELS = ("conv_norm_act", "conv_transpose_norm_act", "group_norm_act", "gn_act_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -113,10 +113,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.acg_gn_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.acg_gn_act_bwd.argtypes = (
             [_P] * 10  # y, out, g, scale, mean, rstd, dx, dscale, dbias, scratch
-            + [_I] * 6  # bf16, B, HW, C, groups, act
+            + [_I] * 7  # y_bf16, bf16, B, HW, C, groups, act
             + [_F, _P]  # leak, stream
         )
         lib.acg_gn_act_bwd.restype = _I
+        return
+    if name == "group_norm_act":
+        lib.acg_gn_tiles.argtypes = [_I]  # HW
+        lib.acg_gn_tiles.restype = _I
+        lib.acg_group_norm_act.argtypes = (
+            [_P] * 7  # x, scale, bias, out, psum, psq, stats
+            + [_I] * 5  # bf16, B, HW, C, groups
+            + [_F, _I, _F, _P]  # eps, act, leak, stream
+        )
+        lib.acg_group_norm_act.restype = _I
         return
     lib.acg_tile_rows.argtypes = [_I, _I]  # bf16, Cout
     lib.acg_tile_rows.restype = _I

@@ -4,8 +4,10 @@ Port of the JAX package's ``ops/pallas/gn_bwd.py`` (``gn_act_bwd_pallas``):
 the closed-form gradient of GroupNorm -> affine -> activation from the
 forward's saved statistics, ``csrc/gn_act_bwd.cu``. It is the backward of
 every GroupNorm layer on the training path: the fused conv kernels' autograd
-Functions (``ops/kernels/conv.py``) call it with the pre-norm ``y`` and the
-(mean, rstd) their forward already computed.
+Functions (``ops/kernels/conv.py``) call it with their float32 pre-norm ``y``
+and the (mean, rstd) their forward already computed, and the standalone
+GroupNorm kernel's (``ops/kernels/norm_act.py``) with its input ``x`` in the
+compute dtype as ``y``.
 
 For a CUDA tensor :func:`gn_act_bwd` launches the kernel or raises; for a CPU
 tensor it computes the plain version, ``reference.gn_act_grads``.
@@ -55,8 +57,9 @@ def gn_act_bwd(
 ) -> tuple:
     """(dy, dscale, dbias) of GroupNorm -> affine -> activation.
 
-    ``y`` (B, H, W, C) is the pre-norm input, ``out`` the block's output and
-    ``g`` its cotangent, both in the compute dtype; ``mean``/``rstd`` are the
+    ``y`` (B, H, W, C) is the pre-norm input, float32 or the compute dtype,
+    read as it is (not cast); ``out`` is the block's output and ``g`` its cotangent,
+    both in the compute dtype; ``mean``/``rstd`` are the
     forward's (B, groups) float32 statistics. ``dy`` comes back in ``out``'s
     dtype, ``dscale``/``dbias`` (C,) in float32. The kernel needs ``mean`` and
     ``rstd``; the CPU path recomputes them when they are absent.
@@ -69,10 +72,12 @@ def gn_act_bwd(
         raise ValueError(f"unknown activation {act!r}")
     if act == "lrelu" and leak < 0:
         raise ValueError("the saved-output activation backward needs leak >= 0")
-    if y.dim() != 4 or y.dtype != torch.float32:
-        raise ValueError(f"gn_act_bwd: y must be float32 (B, H, W, C), got {y.dtype} {tuple(y.shape)}")
     if out.dtype not in _DTYPES or g.dtype != out.dtype:
         raise TypeError(f"gn_act_bwd: out and g must share float32 or bfloat16, got {out.dtype}, {g.dtype}")
+    if y.dim() != 4 or y.dtype not in (torch.float32, out.dtype):
+        raise ValueError(
+            f"gn_act_bwd: y must be (B, H, W, C) in float32 or {out.dtype}, got {y.dtype} {tuple(y.shape)}"
+        )
     if out.shape != y.shape or g.shape != y.shape:
         raise ValueError("gn_act_bwd: y, out and g must share one shape")
     b, h, w, c = y.shape
@@ -102,7 +107,7 @@ def gn_act_bwd(
     rc = lib.acg_gn_act_bwd(
         y.data_ptr(), out.data_ptr(), g.data_ptr(), scale_f.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), scratch.data_ptr(),
-        _DTYPES[out.dtype], b, h * w, c, grp, ACTIVATIONS.index(act), float(leak),
+        _DTYPES[y.dtype], _DTYPES[out.dtype], b, h * w, c, grp, ACTIVATIONS.index(act), float(leak),
         torch.cuda.current_stream(y.device).cuda_stream,
     )
     if rc:

@@ -10,12 +10,15 @@ in a synchronize. A checkout is the root of a tree that holds
 Every run is a process of its own that imports the package from its
 checkout; with two checkouts A and B each round runs A B B A, so a drift in
 the card's clock or the host's load falls on both. One JSON line per run,
-then a ``summary`` line with each checkout's medians.
+then a ``summary`` line with each checkout's medians and whether every run
+of every checkout returned the same predict output, bit for bit (the SHA-256
+of its bytes).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -63,8 +66,10 @@ def worker(checkout: str, windows: int) -> dict:
     for _ in range(5):
         predict()
         rollout()
+    out = predict().float().cpu().numpy()
     return dict(
         checkout=os.path.abspath(checkout),
+        predict_sha256=hashlib.sha256(out.tobytes()).hexdigest(),
         predict_b128_ms=[_window_ms(predict, 20) for _ in range(windows)],
         rollout_t10_b16_ms=[_window_ms(rollout, 5) for _ in range(windows)],
     )
@@ -100,6 +105,7 @@ def main() -> int:
             for key in ("predict_b128_ms", "rollout_t10_b16_ms")}
         for c, rs in runs.items()
     }
+    summary["same_predict_bits"] = len({r["predict_sha256"] for rs in runs.values() for r in rs}) == 1
     print("summary " + json.dumps(summary), flush=True)
     return 0
 

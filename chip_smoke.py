@@ -2,57 +2,77 @@
 
     python3 chip_smoke.py        # from the root of a checkout, on a machine with a GPU
 
+Every conv block is routed as the JAX package routes it with
+backend="pallas" (``ops/envelope.py``): "fused" layers run kernel 1 or 2,
+"split" layers the cuDNN conv and then kernel 3 (GroupNorm + activation).
 Phases, each of which fails the run (non-zero exit, no final line):
 
 1. Print the card and its power limit; build every Hopper kernel from
    ``action_conditioned_gans_tpu_torch/csrc`` (one nvcc per source, in
    parallel).
-2. Per-kernel parity at the seven config1 generator layer shapes and the
-   four config1 discriminator layer shapes (batch 8) and at four ragged
-   shapes: float32 with TF32 off within 1e-3 abs + 1e-3 rel of the plain
-   PyTorch version; bfloat16 within 3e-2 abs of the plain version run in
-   float32 on the same bfloat16 inputs (a bfloat16 plain version rounds its
-   pre-norm conv output, which moves outputs near 4 by one bfloat16 step,
-   0.031).
+2. Per-kernel parity of kernels 1-2 at the seven config1 generator layer
+   shapes and the four config1 discriminator layer shapes (batch 8) and at
+   four ragged shapes: float32 with TF32 off within 1e-3 abs + 1e-3 rel of
+   the plain PyTorch version; bfloat16 within 3e-2 abs of the plain version
+   run in float32 on the same bfloat16 inputs (a bfloat16 plain version
+   rounds its pre-norm conv output, which moves outputs near 4 by one
+   bfloat16 step, 0.031). Kernel 3 against its plain version at its seven
+   config5 generator shapes (B=2), config3 D conv_4 (B=8) and ragged shapes
+   (C 40, 96, 520, groups lowered, odd planes), every activation: float32
+   within 1e-4 abs + 1e-4 rel, bfloat16 within 3e-2 as above, and its
+   (mean, rstd) against float64 statistics.
 3. The committed JAX fixture (tests/fixtures/torch_port_tiny_generator.npz)
    reproduced on cuda in float32 within 1e-3, and the full-width config1
-   generator on cuda against the same weights on the CPU's plain path.
-4. Serving at config1 width in bfloat16 with seeded weights: counts set to
-   0, then Predictor.predict at B=128 and Predictor.rollout at T=10, B=16;
-   every kernel must have launched 4 resp. 3 times per generator call.
-   Then both are timed with CUDA events.
+   and config5 (B=1) generators on cuda against the same weights on the
+   CPU's plain path.
+4. Serving in bfloat16 with seeded weights: counts set to 0, then
+   Predictor.predict and Predictor.rollout, counts read and held to
+   EXPECTED (launches per generator call and routes): config1 at B=128 and
+   T=10, B=16 (4 / 3 / 0 launches of kernels 1 / 2 / 3, 7 fused layers);
+   config5 at 256x256, B=32 and T=30, B=8 (2 / 0 / 7 launches, 2 fused and
+   9 split layers). Outputs finite in [-1, 1]; both timed with CUDA events.
 5. The port's HTTP server answers /healthz, /predict and /rollout (float32
-   and uint8) with exactly the direct calls' results.
-6. Per-layer kernel, plain, library and bound times of the generator layers
-   at B=128 (the ``layer`` lines). Kernel-level times are device times:
-   20 calls captured in a CUDA graph and replayed (``device_time_ms``).
-7. The GroupNorm+activation backward kernel against its plain version
-   (``reference.gn_act_grads``) at every config1 GroupNorm shape (B=8) and
-   at ragged shapes, for lrelu / relu / tanh / none: float32 within 1e-4 abs
-   + 1e-4 rel; bfloat16 dx within 1e-2 abs + 1e-2 rel of the plain version
-   in float32 on the same inputs (one bfloat16 rounding of dx), dscale and
-   dbias within the float32 bar.
-8. Autograd parity: every config1 G and D layer at B=4 in float32, TF32
-   off: the autograd Functions on the kernels against autograd of the plain
-   composite on cuda; dx, dw, dscale, dbias within 1e-3 abs + 1e-3 rel.
+   and uint8) with exactly the direct calls' results (config1).
+6. Per-layer kernel, plain, library and bound times of the config1
+   generator layers at B=128 (the ``layer`` lines), and of kernel 3 at each
+   config5 layer that runs it at B=32 (the ``n3_layer`` lines, with the
+   whole layer as the port splits it, as the fused conv kernel would run
+   it, and as cuDNN + F.group_norm run it). Kernel-level times are device
+   times: 20 calls captured in a CUDA graph and replayed
+   (``device_time_ms``).
+7. The GroupNorm+activation backward kernel (kernel 4) against its plain
+   version (``reference.gn_act_grads``) at every config1 GroupNorm shape
+   (B=8) and at ragged shapes, for lrelu / relu / tanh / none: float32
+   within 1e-4 abs + 1e-4 rel; bfloat16 dx within 1e-2 abs + 1e-2 rel of
+   the plain version in float32 on the same inputs (one bfloat16 rounding
+   of dx), dscale and dbias within the float32 bar. The same with a
+   bfloat16 y (the backward of kernel 3's layers) at kernel 3's shapes.
+8. Autograd parity in float32, TF32 off: every config1 G and D layer at B=4
+   through the fused kernels' autograd Functions, and two split layers
+   (config1 float32 D conv_3, config3 D conv_4) through the cuDNN conv and
+   GroupNormActFn, against autograd of the plain composite on cuda; dx, dw,
+   dscale, dbias within 1e-3 abs + 1e-3 rel.
 9. The committed training fixture (tests/fixtures/torch_port_tiny_train.npz:
    the JAX package's tiny four-step run) replayed on cuda in float32; the
    (d_loss, g_loss, g_recon) trajectory within tests/test_golden.py's
    tolerances.
-10. Training at config1 width, bfloat16, B=128, T=1, bfloat16 Adam moments:
-    3 warm-up steps; counts set to 0, one step, counts read (12 / 3 / 11
-    launches) and every kernel call of it recorded; then 20 steps timed with
-    CUDA events. Losses finite, both parameter sets moved. Each distinct conv
-    call of that step (D at B=256 and B=128 among them) held against its
-    plain version as in phase 2 (bfloat16, 3e-2).
-11. Per-call times of the backward kernel at the shapes of that step (the
-    ``gnbwd_layer`` lines), each checked against its plain version in float32
-    on the same inputs: dx within 1e-2 abs + 1e-2 rel, dscale and dbias
-    within 1e-4 of their largest magnitude + 1e-4 rel. Then a ``kernels``
-    JSON line (per kernel:
-    launches over the serving and the training run, max |err|, kernel,
-    plain, bound and library times), then the final line
-    ``{"ok": true, "device": {...}}``.
+10. Training in bfloat16, T=1: config1 at B=128 with bfloat16 Adam moments
+    (12 / 3 / 0 / 11 launches of kernels 1-4 per step), then config3 at
+    B=32 (128x128, d_extra_layers=1: 23 / 4 / 2 / 25, kernel 3 under
+    autograd in the D update and the G head, kernel 4 reading its bfloat16
+    input as y). Each: 3 warm-up steps; counts set to 0, one step, counts
+    read and every kernel call of it recorded; then 20 steps timed with CUDA
+    events and a torch.profiler breakdown of one step. Losses finite, both
+    parameter sets moved, peak memory printed. Each distinct conv call and
+    each kernel-3 call of the counted step held against its plain version
+    as in phase 2 (bfloat16, 3e-2).
+11. Per-call times of kernel 4 at the shapes of the config1 step (the
+    ``gnbwd_layer`` lines), each checked against its plain version in
+    float32 on the same inputs: dx within 1e-2 abs + 1e-2 rel, dscale and
+    dbias within 1e-4 of their largest magnitude + 1e-4 rel. Then a
+    ``kernels`` JSON line (per kernel: launches summed over the four main
+    paths, max |err|, kernel, plain, bound and library times), then the
+    final line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -81,21 +101,32 @@ KERNEL_INFO = {
     "conv_norm_act": dict(
         source="action_conditioned_gans_tpu_torch/csrc/conv_norm_act.cu",
         replaces="action_conditioned_gans_tpu/ops/pallas/conv.py:177",
-        per_call=4,
-        per_step=12,
     ),
     "conv_transpose_norm_act": dict(
         source="action_conditioned_gans_tpu_torch/csrc/conv_transpose_norm_act.cu",
         replaces="action_conditioned_gans_tpu/ops/pallas/conv.py:392",
-        per_call=3,
-        per_step=3,
+    ),
+    "group_norm_act": dict(
+        source="action_conditioned_gans_tpu_torch/csrc/group_norm_act.cu",
+        replaces="action_conditioned_gans_tpu/ops/pallas/norm_act.py:59",
     ),
     "gn_act_bwd": dict(
         source="action_conditioned_gans_tpu_torch/csrc/gn_act_bwd.cu",
         replaces="action_conditioned_gans_tpu/ops/pallas/gn_bwd.py:120",
-        per_call=0,
-        per_step=11,
     ),
+}
+# Per main path: each kernel's launches per generator call (serving) or per
+# training step, and the (fused, split) routes its conv blocks took, as the
+# JAX package's envelope decides them (tests/test_torch_envelope.py).
+EXPECTED = {
+    "config1 serving": (dict(conv_norm_act=4, conv_transpose_norm_act=3, group_norm_act=0,
+                             gn_act_bwd=0), (7, 0)),
+    "config1 step": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
+                          gn_act_bwd=11), (15, 0)),
+    "config5 serving": (dict(conv_norm_act=2, conv_transpose_norm_act=0, group_norm_act=7,
+                             gn_act_bwd=0), (2, 9)),
+    "config3 step": (dict(conv_norm_act=23, conv_transpose_norm_act=4, group_norm_act=2,
+                          gn_act_bwd=25), (27, 2)),
 }
 # tests/test_golden.py's tolerances on (d_loss, g_loss, g_recon): (atol, rtol).
 GOLDEN_TOL = ((2e-4, 1e-3), (2e-3, 1e-3), (2e-4, 1e-3))
@@ -353,34 +384,77 @@ def seeded_params(cfg, seed):
     return state_dict_to_flax(gen.state_dict())
 
 
-def config1_predictor():
+def preset_predictor(name):
     from action_conditioned_gans_tpu_torch.config import get_preset
     from action_conditioned_gans_tpu_torch.infer import Predictor
 
-    cfg = get_preset("config1")
-    check(cfg.model.compute_dtype == "bfloat16", "config1 does not serve in bfloat16")
+    cfg = get_preset(name)
+    check(cfg.model.compute_dtype == "bfloat16", f"{name} does not serve in bfloat16")
     return Predictor(cfg, seeded_params(cfg, seed=0), device="cuda")
 
 
+def phase_config5_f32():
+    """The full-width config5 generator in float32 at B=1: cuda (in float32
+    every layer is split: the cuDNN conv, then kernel 3 where it has a
+    GroupNorm) against the same weights on the CPU's plain path, within
+    1e-3."""
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+
+    c5 = get_preset("config5")
+    cfg = dataclasses.replace(c5, model=dataclasses.replace(c5.model, compute_dtype="float32"))
+    params = seeded_params(cfg, seed=5)
+    rng = np.random.default_rng(5)
+    frame = np.tanh(rng.standard_normal((1, 256, 256, 3))).astype(np.float32)
+    action = rng.standard_normal((1, 4)).astype(np.float32)
+    on_gpu = Predictor(cfg, params, device="cuda").predict(frame, action).cpu().numpy()
+    on_cpu = Predictor(cfg, params, device="cpu").predict(frame, action).numpy()
+    e = float(np.abs(on_gpu - on_cpu).max())
+    say(f"config5 generator f32 B=1, cuda kernels vs cpu plain: max|d|={e:.3e}")
+    check(np.isfinite(e) and e <= 1e-3, "config5 generator on cuda differs from the CPU plain path")
+
+
 def reset_launches():
-    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd
+    from action_conditioned_gans_tpu_torch.ops import api
+    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
 
     conv.reset_launches()
+    norm_act.reset_launches()
     gn_bwd.reset_launches()
+    api.reset_routes()
 
 
 def read_launches():
-    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd
+    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
 
-    return {**conv.LAUNCHES, **gn_bwd.LAUNCHES}
+    return {**conv.LAUNCHES, **norm_act.LAUNCHES, **gn_bwd.LAUNCHES}
 
 
-def phase_serving(predictor):
+def check_counts(path, launches, times):
+    """The launch and route counts of ``times`` generator calls or training
+    steps on ``path`` against EXPECTED."""
+    from action_conditioned_gans_tpu_torch.ops import api
+
+    per, (fused, split) = EXPECTED[path]
+    say(f"main path {path}: launches {launches}, routes {api.ROUTES} over {times} "
+        f"{'steps' if 'step' in path else 'generator calls'}")
+    for name in KERNEL_INFO:
+        want = per[name] * times
+        check(launches[name] == want, f"{path}: {name} launched {launches[name]} times, want {want}")
+    want = {"fused": fused * times, "split": split * times}
+    check(api.ROUTES == want, f"{path}: routes {api.ROUTES}, want {want}")
+
+
+def phase_serving(predictor, path, batch, horizon, roll_batch, timed=20):
+    """Counts set to 0, one predict at ``batch`` and one rollout of
+    ``horizon`` steps at ``roll_batch``, counts read; outputs checked; then
+    both timed with CUDA events."""
+    size = predictor.cfg.model.image_size
     rng = np.random.default_rng(0)
-    frame = np.tanh(rng.standard_normal((128, 64, 64, 3))).astype(np.float32)
-    action = rng.standard_normal((128, 4)).astype(np.float32)
-    frame0 = frame[:16]
-    actions = rng.standard_normal((16, 10, 4)).astype(np.float32)
+    frame = np.tanh(rng.standard_normal((batch, size, size, 3))).astype(np.float32)
+    action = rng.standard_normal((batch, 4)).astype(np.float32)
+    frame0 = frame[:roll_batch]
+    actions = rng.standard_normal((roll_batch, horizon, 4)).astype(np.float32)
     predictor.predict(frame, action)  # warm-up
     predictor.rollout(frame0, actions)
     torch.cuda.synchronize()
@@ -390,32 +464,32 @@ def phase_serving(predictor):
     clip = predictor.rollout(frame0, actions)
     torch.cuda.synchronize()
     launches = read_launches()
-    say(f"main path launches (predict B=128 + rollout T=10 B=16): {launches}")
-    for name, info in KERNEL_INFO.items():
-        want = info["per_call"] * (1 + 10)
-        check(launches[name] == want, f"{name} launched {launches[name]} times, want {want}")
-    check(tuple(out.shape) == (128, 64, 64, 3) and out.dtype == torch.bfloat16, "predict shape")
-    check(tuple(clip.shape) == (16, 10, 64, 64, 3), "rollout shape")
+    check_counts(path, launches, 1 + horizon)
+    check(tuple(out.shape) == (batch, size, size, 3) and out.dtype == torch.bfloat16, "predict shape")
+    check(tuple(clip.shape) == (roll_batch, horizon, size, size, 3), "rollout shape")
     for t in (out, clip):
         check(bool(torch.isfinite(t.float()).all()) and float(t.float().abs().max()) <= 1.0,
               "outputs not finite or outside [-1, 1]")
 
     f_t, a_t = (torch.from_numpy(a).cuda() for a in (frame, action))
     f0_t, as_t = (torch.from_numpy(a).cuda() for a in (frame0, actions))
-    predict_ms = cuda_time_ms(lambda: predictor.predict(f_t, a_t), iters=20)
-    rollout_ms = cuda_time_ms(lambda: predictor.rollout(f0_t, as_t), iters=5)
+    predict_ms = cuda_time_ms(lambda: predictor.predict(f_t, a_t), iters=timed)
+    profile_call(f"{path} predict", lambda: predictor.predict(f_t, a_t), predict_ms)
+    rollout_ms = cuda_time_ms(lambda: predictor.rollout(f0_t, as_t), iters=max(timed // 4, 2),
+                              warmup=1)
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(timed // 2):
         predictor.predict(frame, action)
     torch.cuda.synchronize()
-    host_predict_ms = (time.perf_counter() - t0) / 10 * 1e3
-    serving = dict(
-        predict_b128_ms=predict_ms,
-        predict_frames_per_s=128 / predict_ms * 1e3,
-        predict_b128_from_numpy_ms=host_predict_ms,
-        rollout_t10_b16_ms=rollout_ms,
-        rollout_frames_per_s=160 / rollout_ms * 1e3,
-    )
+    host_predict_ms = (time.perf_counter() - t0) / (timed // 2) * 1e3
+    serving = {
+        "path": path,
+        f"predict_b{batch}_ms": predict_ms,
+        "predict_frames_per_s": batch / predict_ms * 1e3,
+        f"predict_b{batch}_from_numpy_ms": host_predict_ms,
+        f"rollout_t{horizon}_b{roll_batch}_ms": rollout_ms,
+        "rollout_frames_per_s": horizon * roll_batch / rollout_ms * 1e3,
+    }
     say("serving " + json.dumps(serving))
     return launches
 
@@ -493,15 +567,15 @@ def phase_kernel_times(layers, worst_b8):
 ACTS = ("lrelu", "relu", "tanh", "none")
 
 
-def gn_inputs(shape, groups, act, dtype, seed):
-    """y (float32), scale, out = act(GroupNorm(y)) and a cotangent g in
-    ``dtype``, and the (mean, rstd) of y, on the card."""
+def gn_inputs(shape, groups, act, dtype, seed, y_dtype=torch.float32):
+    """y (in ``y_dtype``), scale, out = act(GroupNorm(y)) and a cotangent g
+    in ``dtype``, and the (mean, rstd) of y, on the card."""
     from action_conditioned_gans_tpu_torch.ops import common, reference
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     c = shape[-1]
     gr = common.resolve_groups(c, groups)
-    y = 1.5 * torch.randn(shape, generator=gen, device="cuda") + 0.3
+    y = (1.5 * torch.randn(shape, generator=gen, device="cuda") + 0.3).to(y_dtype).float()
     scale = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
     bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
     out = reference.norm_act(y, scale, bias, groups=groups, act=act).to(dtype)
@@ -509,17 +583,18 @@ def gn_inputs(shape, groups, act, dtype, seed):
     yg = y.double().reshape(shape[0], -1, gr, c // gr)
     mean = yg.mean(dim=(1, 3))
     rstd = torch.rsqrt(yg.var(dim=(1, 3), unbiased=False) + 1e-5)
-    return y, scale, bias, out, g, mean.float().contiguous(), rstd.float().contiguous()
+    return (y.to(y_dtype), scale, bias, out, g, mean.float().contiguous(),
+            rstd.float().contiguous())
 
 
-def gn_bwd_pair(shape, groups, act, dtype, seed):
+def gn_bwd_pair(shape, groups, act, dtype, seed, y_dtype=torch.float32):
     """(kernel result, plain result in float32 on the same inputs, inputs)."""
     from action_conditioned_gans_tpu_torch.ops.kernels import gn_bwd
 
-    y, scale, bias, out, g, mean, rstd = gn_inputs(shape, groups, act, dtype, seed)
+    y, scale, bias, out, g, mean, rstd = gn_inputs(shape, groups, act, dtype, seed, y_dtype)
     kw = dict(groups=groups, act=act, leak=0.2)
     got = gn_bwd.gn_act_bwd(y, scale, out, g, mean, rstd, **kw)
-    want = gn_bwd.gn_act_bwd_plain(y, scale, out.float(), g.float(), mean, rstd, **kw)
+    want = gn_bwd.gn_act_bwd_plain(y.float(), scale, out.float(), g.float(), mean, rstd, **kw)
     torch.cuda.synchronize()
     return got, want, (y, scale, bias, out, g, mean, rstd)
 
@@ -612,22 +687,31 @@ def phase_train_fixture():
         f"{worst:.3e} (bars of tests/test_golden.py)")
 
 
-def phase_training(steps=20, warmup=3, batch=128):
+def config1_train_config(batch=128):
     """config1 at full width, bfloat16, B=128, T=1, bfloat16 Adam moments
-    (bench.py's override), seeded weights and seeded numpy clips."""
+    (bench.py's override)."""
     from action_conditioned_gans_tpu_torch.config import get_preset
-    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd
+
+    c1 = get_preset("config1")
+    return c1.replace(train=dataclasses.replace(c1.train, batch_size=batch, rollout_length=1,
+                                                adam_moment_dtype="bfloat16"))
+
+
+def phase_training(cfg, path, steps=20, warmup=3):
+    """``cfg`` at full width with seeded weights and seeded numpy clips: the
+    warm-up steps, one counted step (counts set to 0 before and read after,
+    every kernel wrapper's calls recorded), then ``steps`` steps timed."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
     from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
     from action_conditioned_gans_tpu_torch.train.state import param_count
 
-    c1 = get_preset("config1")
-    cfg = c1.replace(train=dataclasses.replace(c1.train, batch_size=batch, rollout_length=1,
-                                               adam_moment_dtype="bfloat16"))
-    check(cfg.model.compute_dtype == "bfloat16", "config1 does not train in bfloat16")
+    batch, size = cfg.train.batch_size, cfg.model.image_size
+    check(cfg.model.compute_dtype == "bfloat16", f"{path} does not train in bfloat16")
+    check(cfg.train.rollout_length == 1, f"{path}: T must be 1")
     state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
     step = make_train_step(cfg, device="cuda")
     rng = np.random.default_rng(10)
-    batches = [dict(frames=torch.from_numpy(np.tanh(rng.standard_normal((batch, 2, 64, 64, 3)))
+    batches = [dict(frames=torch.from_numpy(np.tanh(rng.standard_normal((batch, 2, size, size, 3)))
                                             .astype(np.float32)).cuda(),
                     actions=torch.from_numpy(rng.standard_normal((batch, 1, 4)).astype(np.float32)).cuda())
                for _ in range(4)]
@@ -638,11 +722,12 @@ def phase_training(steps=20, warmup=3, batch=128):
     torch.cuda.synchronize()
 
     # The main path's counted step; every kernel wrapper's calls are recorded.
-    calls, conv_calls, real = [], [], gn_bwd.gn_act_bwd
+    calls, conv_calls, norm_calls, real = [], [], [], gn_bwd.gn_act_bwd
     real_conv = {name: getattr(conv, name) for name in ("conv_norm_act", "conv_transpose_norm_act")}
+    real_norm = norm_act.group_norm_act
 
     def record(y, scale, out, g, mean=None, rstd=None, **kw):
-        calls.append((tuple(y.shape), out.dtype, kw["groups"], kw["act"], kw["leak"]))
+        calls.append((tuple(y.shape), out.dtype, kw["groups"], kw["act"], kw["leak"], y.dtype))
         return real(y, scale, out, g, mean, rstd, **kw)
 
     def record_conv(name):
@@ -651,9 +736,14 @@ def phase_training(steps=20, warmup=3, batch=128):
             return real_conv[name](x, w, scale, bias, **kw)
         return wrapper
 
+    def record_norm(x, scale, bias, **kw):
+        norm_calls.append((tuple(x.shape), x.dtype, tuple(sorted(kw.items())), x.requires_grad))
+        return real_norm(x, scale, bias, **kw)
+
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     gn_bwd.gn_act_bwd = record
+    norm_act.group_norm_act = record_norm
     for name in real_conv:
         setattr(conv, name, record_conv(name))
     try:
@@ -661,14 +751,18 @@ def phase_training(steps=20, warmup=3, batch=128):
         torch.cuda.synchronize()
     finally:
         gn_bwd.gn_act_bwd = real
+        norm_act.group_norm_act = real_norm
         for name, fn in real_conv.items():
             setattr(conv, name, fn)
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    say(f"main path launches (one training step, config1 B={batch} T=1 bf16): {launches}")
-    for name, info in KERNEL_INFO.items():
-        check(launches[name] == info["per_step"],
-              f"{name} launched {launches[name]} times in a training step, want {info['per_step']}")
+    check_counts(path, launches, 1)
+    # Kernel 3 runs under autograd, and its backward reads its input, in the
+    # compute dtype, as y.
+    k3 = EXPECTED[path][0]["group_norm_act"]
+    check(sum(1 for c in norm_calls if c[3]) == k3, f"{path}: kernel 3 calls under autograd")
+    y_bf16 = sum(1 for c in calls if c[5] == torch.bfloat16)
+    check(y_bf16 == k3, f"{path}: {y_bf16} gn_act_bwd calls read a bfloat16 y, want {k3}")
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -684,12 +778,12 @@ def phase_training(steps=20, warmup=3, batch=128):
     moved_d = max(float((state.d_params[k] - v).abs().max()) for k, v in d0.items())
     check(moved_g > 0 and moved_d > 0, "a parameter set did not move")
     n_g, n_d = param_count(state)
-    train = dict(train_step_ms=ms, frames_per_s=batch / ms * 1e3, batch=batch, steps_timed=steps,
-                 peak_memory_gb=peak_gb, g_params=n_g, d_params=n_d, step=state.step,
-                 last_metrics=metrics)
+    train = dict(path=path, train_step_ms=ms, frames_per_s=batch / ms * 1e3, batch=batch,
+                 steps_timed=steps, peak_memory_gb=peak_gb, g_params=n_g, d_params=n_d,
+                 step=state.step, last_metrics=metrics)
     say("training " + json.dumps(train))
-    profile_step(step, state, batches[0], ms)
-    return launches, calls, conv_calls
+    profile_call(path, lambda: step(state, batches[0]), ms)
+    return launches, calls, conv_calls, norm_calls
 
 
 def phase_train_conv_parity(conv_calls, worst):
@@ -717,22 +811,26 @@ def phase_train_conv_parity(conv_calls, worst):
 
 
 # Kernel-name fragments of the port's own kernels (csrc/).
+# The GroupNorm stats and apply passes (gn_common.cuh) serve both the conv
+# kernels' epilogue and kernel 3.
 OWN_KERNELS = {"conv_wmma_kernel": "conv fwd GEMM", "conv_fma_kernel": "conv fwd GEMM",
-               "gn_stats_kernel": "conv fwd GroupNorm stats", "gn_apply_kernel": "conv fwd GroupNorm apply",
+               "gn_partials_kernel": "group_norm_act partial sums",
+               "gn_stats_kernel": "GroupNorm stats (conv epilogue, group_norm_act)",
+               "gn_apply_kernel": "GroupNorm apply (conv epilogue, group_norm_act)",
                "gn_bwd_": "gn_act_bwd"}
 
 
-def profile_step(step, state, batch, step_ms, top=14):
-    """Device time by kernel over one training step (torch.profiler), and
-    the device's busy share: of the profiled step's wall time (which the
-    profiler's own host work inflates) and of ``step_ms``, the step's time
+def profile_call(path, fn, call_ms, top=14):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's busy share: of the profiled call's wall time (which the
+    profiler's own host work inflates) and of ``call_ms``, the call's time
     without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, n_kernels = {}, 0
@@ -751,8 +849,8 @@ def profile_step(step, state, batch, step_ms, top=14):
         label = next((v for k, v in OWN_KERNELS.items() if k in name), "other (cuDNN, cuBLAS, torch)")
         groups[label] = groups.get(label, 0.0) + t
     say("profile " + json.dumps(dict(
-        wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
-        busy_share_of_unprofiled_step=busy_ms / step_ms,
+        path=path, wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+        busy_share_of_unprofiled_call=busy_ms / call_ms,
         kernels=n_kernels, by_group_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])))))
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         say(f"profile_kernel {t:8.4f} ms x{c:3d} {name[:110]}")
@@ -786,8 +884,9 @@ def phase_gn_bwd_times(calls):
 
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
                max_abs_err=0.0)
-    for i, (shape, dtype, groups, act, leak) in enumerate(calls):
-        got, want, (y, scale, bias, out, g, mean, rstd) = gn_bwd_pair(shape, groups, act, dtype, 500 + i)
+    for i, (shape, dtype, groups, act, leak, y_dtype) in enumerate(calls):
+        got, want, (y, scale, bias, out, g, mean, rstd) = gn_bwd_pair(shape, groups, act, dtype,
+                                                                      500 + i, y_dtype)
         err, ok = within(got[0], want[0], 1e-2, 1e-2)
         check(ok, f"gn_act_bwd at {shape}: bf16 dx vs plain ({err:.3e})")
         # dscale and dbias are float32 sums over B*H*W values on both sides:
@@ -802,8 +901,8 @@ def phase_gn_bwd_times(calls):
         library_ms = device_time_ms(library_gn_bwd(y, scale, bias, g, resolve_groups(shape[-1], groups), act))
         n = int(np.prod(shape))
         b, c, gr = shape[0], shape[-1], resolve_groups(shape[-1], groups)
-        # y float32 in, out and g in, dx out; scale, mean, rstd in; dscale, dbias out.
-        nbytes = n * (4 + 3 * out.element_size()) + 4 * c + 8 * b * gr + 8 * c
+        # y in, out and g in, dx out; scale, mean, rstd in; dscale, dbias out.
+        nbytes = n * (y.element_size() + 3 * out.element_size()) + 4 * c + 8 * b * gr + 8 * c
         flops = 12 * n  # act', xhat, two sums, dx: float32 on the CUDA cores
         ops_ms, bytes_ms = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         row = dict(call=i, shape=list(shape), dtype=str(dtype)[6:], groups=gr, act=act, bytes=nbytes,
@@ -816,6 +915,206 @@ def phase_gn_bwd_times(calls):
         tot["bytes_ms"] += bytes_ms
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
     return tot
+
+
+# -- kernel 3: the standalone GroupNorm + activation -----------------------------------
+
+
+# Kernel 3's inputs on the main paths and ragged ones: (label, shape, groups).
+NORM_SHAPES = [
+    ("c5.G.enc_1", (2, 64, 64, 128), 32), ("c5.G.enc_3", (2, 16, 16, 512), 32),
+    ("c5.G.enc_4", (2, 8, 8, 512), 32), ("c5.G.dec_4", (2, 16, 16, 512), 32),
+    ("c5.G.dec_3", (2, 32, 32, 256), 32), ("c5.G.dec_2", (2, 64, 64, 128), 32),
+    ("c5.G.dec_1", (2, 128, 128, 64), 32),
+    ("c3.D.conv_4", (8, 4, 4, 512), 32),  # also config1 float32 D conv_3's output
+    # ragged: 40 -> 20 groups, 96 -> 16 groups of 6, 520 -> 26 groups; odd planes
+    ("edge_c40", (3, 7, 5, 40), 32), ("edge_c96", (2, 9, 9, 96), 20),
+    ("edge_c520", (2, 5, 7, 520), 32),
+]
+
+
+def norm_inputs(shape, dtype, seed):
+    """x ~ 1.5 N(0, 1) + 0.3 in ``dtype``, scale ~ 1 + 0.2 N, bias ~ 0.1 N."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = (1.5 * torch.randn(shape, generator=gen, device="cuda") + 0.3).to(dtype)
+    return (x, 1 + 0.2 * torch.randn(c, generator=gen, device="cuda"),
+            0.1 * torch.randn(c, generator=gen, device="cuda"))
+
+
+def phase_norm_parity():
+    """Kernel 3 vs its plain version (reference.norm_act) at every shape of
+    NORM_SHAPES, every activation: float32 within 1e-4 abs + 1e-4 rel;
+    bfloat16 within 3e-2 of the plain version run in float32 on the same
+    bfloat16 input (the kernel activates before its cast). The returned
+    (mean, rstd) against float64 statistics within 1e-4 abs + 1e-4 rel."""
+    from action_conditioned_gans_tpu_torch.ops.common import resolve_groups
+    from action_conditioned_gans_tpu_torch.ops.kernels import norm_act
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_stats = 0.0
+    with torch.inference_mode():
+        for i, (label, shape, groups) in enumerate(NORM_SHAPES):
+            gr = resolve_groups(shape[-1], groups)
+            for act in ACTS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    x, s, b = norm_inputs(shape, dtype, seed=700 + i)
+                    kw = dict(groups=groups, act=act, leak=0.2)
+                    got, stats = norm_act.group_norm_act_with_stats(x, s, b, **kw)
+                    want = norm_act.group_norm_act_plain(x.float(), s, b, **kw)
+                    torch.cuda.synchronize()
+                    tag = f"{label} {shape} groups {gr} {act} {str(dtype)[6:]}"
+                    check(got.dtype == dtype and tuple(got.shape) == shape, f"group_norm_act {tag}")
+                    bar = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 0.0)
+                    err, ok = within(got, want, *bar)
+                    check(ok and np.isfinite(err), f"group_norm_act vs plain at {tag}: {err:.3e}")
+                    worst[dtype] = max(worst[dtype], err)
+                    xg = x.double().reshape(shape[0], -1, gr, shape[-1] // gr)
+                    ref = torch.stack([xg.mean(dim=(1, 3)),
+                                       torch.rsqrt(xg.var(dim=(1, 3), unbiased=False) + 1e-5)])
+                    e_st, ok_st = within(stats, ref, 1e-4, 1e-4)
+                    check(tuple(stats.shape) == (2, shape[0], gr) and ok_st,
+                          f"group_norm_act (mean, rstd) at {tag}: {e_st:.3e}")
+                    worst_stats = max(worst_stats, e_st)
+    say(f"group_norm_act parity ({len(NORM_SHAPES)} shapes x {len(ACTS)} activations): f32 "
+        f"max|d|={worst[torch.float32]:.3e} (bar 1e-4 + 1e-4 rel), bf16 "
+        f"max|d|={worst[torch.bfloat16]:.3e} (bar 3e-2), (mean, rstd) max|d|={worst_stats:.3e}")
+    return worst[torch.bfloat16]
+
+
+def phase_gn_bwd_bf16_y():
+    """Kernel 4 reading a bfloat16 y (the backward of kernel 3's layers) at
+    kernel 3's shapes, every activation, against reference.gn_act_grads in
+    float32 on the same values: phase 7's bars."""
+    worst = 0.0
+    for i, (label, shape, groups) in enumerate(NORM_SHAPES):
+        for act in ACTS:
+            got, want, _ = gn_bwd_pair(shape, groups, act, torch.bfloat16, 800 + i,
+                                       y_dtype=torch.bfloat16)
+            e_dx, ok_dx = within(got[0], want[0], 1e-2, 1e-2)
+            e_s, ok_s = within(got[1], want[1], 1e-4, 1e-4)
+            e_b, ok_b = within(got[2], want[2], 1e-4, 1e-4)
+            check(ok_dx and ok_s and ok_b, f"gn_act_bwd with bf16 y at {label} {shape} {act}: "
+                                           f"dx {e_dx:.3e} dscale {e_s:.3e} dbias {e_b:.3e}")
+            worst = max(worst, e_dx, e_s, e_b)
+    say(f"gn_act_bwd parity with bf16 y ({len(NORM_SHAPES)} shapes x {len(ACTS)} activations): "
+        f"max|d|={worst:.3e} (dx bar 1e-2 + 1e-2 rel, dscale / dbias 1e-4 + 1e-4 rel)")
+
+
+def phase_split_autograd(batch=4):
+    """Autograd of a split layer on the card (cuDNN conv, then kernel 3
+    through GroupNormActFn, backward through kernel 4) against autograd of
+    the plain composite, float32, TF32 off, within 1e-3 abs + 1e-3 rel:
+    config1 float32 D conv_3 and config3 D conv_4."""
+    from action_conditioned_gans_tpu_torch.ops import api, reference
+
+    cases = [("c1.f32.D.conv_3", (batch, 8, 8, 256), (4, 4, 256, 512)),
+             ("c3.D.conv_4", (batch, 8, 8, 512), (4, 4, 512, 512))]
+    kw = dict(kind="group", groups=32, act="lrelu", leak=0.2)
+    for i, (label, x_shape, w_shape) in enumerate(cases):
+        x, w, s, b = call_inputs(x_shape, w_shape, "group", torch.float32, seed=900 + i)
+
+        def grads(fn):
+            ins = [t.clone().requires_grad_() for t in (x, w, s, b)]
+            out = fn(*ins)
+            ct = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(i),
+                             device="cuda")
+            return out, torch.autograd.grad(out, ins, ct)
+
+        api.reset_routes()
+        out_k, got = grads(lambda *a: api.conv_norm_act(*a, stride=2, **kw))
+        check(api.ROUTES == {"fused": 0, "split": 1}, f"{label}: not on the split route")
+        check(out_k.grad_fn.name() == "GroupNormActFnBackward", f"{label}: not through GroupNormActFn")
+        _, want = grads(lambda xx, ww, ss, bb: reference.norm_act(
+            reference.conv2d(xx, ww, stride=2), ss, bb, **kw))
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, r in zip(("dx", "dw", "dscale", "dbias"), got, want):
+            err, ok = within(a, r, 1e-3, 1e-3)
+            check(ok, f"{label}: {name} of the split layer vs the plain composite ({err:.3e})")
+            errs.append(f"{name} {err:.2e}")
+        say(f"split grad parity {label:16s} x{x_shape} f32 " + " ".join(errs))
+
+
+def library_norm_act(x, scale, bias, groups, act):
+    """F.group_norm + the activation on the NCHW view of the NHWC tensor
+    (any layout copy F.group_norm makes is inside the call): the yardstick,
+    never called by the port."""
+    acts = {"lrelu": lambda t: F.leaky_relu(t, 0.2), "relu": F.relu, "tanh": torch.tanh,
+            "none": lambda t: t}
+    xn = x.permute(0, 3, 1, 2)
+    s, b = scale.to(x.dtype), bias.to(x.dtype)
+    return lambda: acts[act](F.group_norm(xn, groups, s, b))
+
+
+def phase_norm_times(layers, worst_bf16, batch=32):
+    """Kernel 3 at each config5 generator layer that runs it, at the predict
+    batch: its device time, the plain version's and the library's, the byte
+    bound; and the whole layer as the port runs it (cuDNN conv + kernel 3),
+    as the fused conv kernel runs it, and as cuDNN + F.group_norm run it."""
+    from action_conditioned_gans_tpu_torch.ops import api, envelope
+    from action_conditioned_gans_tpu_torch.ops.common import resolve_groups
+    from action_conditioned_gans_tpu_torch.ops.kernels import norm_act
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+               max_abs_err=worst_bf16)
+    with torch.inference_mode():
+        for i, (lname, block, shape) in enumerate(layers):
+            x_shape = (batch, *shape[1:])
+            w_shape = tuple(block.kernel.shape)
+            if block.norm != "group" or envelope.route(
+                    x_shape, w_shape, block.stride, block.transpose, block.norm, block.groups,
+                    torch.bfloat16) != "split":
+                continue
+            x, w, s, b = layer_inputs(block, x_shape, batch, torch.bfloat16, seed=1000 + i)
+            conv = api.conv2d_transpose if block.transpose else api.conv2d
+            y = conv(x, w, stride=block.stride)
+            kw = dict(groups=block.groups, act=block.act, leak=block.leak)
+            got = norm_act.group_norm_act(y, s, b, **kw)
+            err, ok = within(got, norm_act.group_norm_act_plain(y.float(), s, b, **kw), 3e-2, 0.0)
+            check(ok, f"{lname}: group_norm_act vs plain at x{tuple(y.shape)} ({err:.3e})")
+            ms = device_time_ms(lambda: norm_act.group_norm_act(y, s, b, **kw))
+            plain_ms = device_time_ms(lambda: norm_act.group_norm_act_plain(y, s, b, **kw))
+            gr = resolve_groups(y.shape[-1], block.groups)
+            library_ms = device_time_ms(library_norm_act(y, s, b, gr, block.act))
+            _, fused, _ = kernel_call(block)
+            block_kw = dict(stride=block.stride, transpose=block.transpose, kind=block.norm, **kw)
+            split_layer_ms = device_time_ms(lambda: api.conv_norm_act(x, w, s, b, **block_kw))
+            fused_layer_ms = device_time_ms(lambda: fused(x, w, s, b))
+            library_layer_ms = device_time_ms(library_call(block, x, w, s, b))
+            n, c = y.numel(), y.shape[-1]
+            nbytes = 2 * n * y.element_size() + 2 * c * 4  # x in, out written; scale, bias
+            flops = 10 * n  # two sums, normalise, affine, act: float32 on the CUDA cores
+            ops_ms, bytes_ms = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            row = dict(layer=lname, shape=list(y.shape), groups=gr, act=block.act, bytes=nbytes,
+                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=max(ops_ms, bytes_ms),
+                       bound_by="operations" if ops_ms >= bytes_ms else "bytes", max_abs_err=err,
+                       split_layer_ms=split_layer_ms, fused_kernel_layer_ms=fused_layer_ms,
+                       library_layer_ms=library_layer_ms)
+            say("n3_layer " + json.dumps(row))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += row[key]
+            tot["ops_ms"] += ops_ms
+            tot["bytes_ms"] += bytes_ms
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    return tot
+
+
+def phase_train_norm_parity(norm_calls, totals):
+    """Each kernel-3 call of the counted training step in bfloat16 against
+    its plain version in float32 on the same input, within 3e-2."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import norm_act
+
+    with torch.inference_mode():
+        for i, (shape, dtype, kw, _) in enumerate(norm_calls):
+            kw = dict(kw)
+            x, s, b = norm_inputs(shape, dtype, seed=1100 + i)
+            got = norm_act.group_norm_act(x, s, b, **kw)
+            err, ok = within(got, norm_act.group_norm_act_plain(x.float(), s, b, **kw), 3e-2, 0.0)
+            say(f"train parity group_norm_act x{shape} {str(dtype)[6:]} {kw['act']} max|d|={err:.3e}")
+            check(ok, f"group_norm_act at the training step's x{shape}: kernel vs plain ({err:.3e})")
+            totals["max_abs_err"] = max(totals["max_abs_err"], err)
 
 
 def main() -> int:
@@ -840,7 +1139,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     say(f"built {sorted(paths)} for sm_90a in {build_s:.1f} s -> {build.BUILD_DIR}")
 
-    predictor = config1_predictor()
+    predictor = preset_predictor("config1")
     rng = np.random.default_rng(2)
     frame = np.tanh(rng.standard_normal((8, 64, 64, 3))).astype(np.float32)
     action = rng.standard_normal((8, 4)).astype(np.float32)
@@ -850,16 +1149,37 @@ def main() -> int:
     check(len(d_layers) == 4, f"expected 4 discriminator layers, saw {len(d_layers)}")
     worst = phase_parity(layers + d_layers)
     phase_parity(edge_layers(), batch=None)
+    worst_norm = phase_norm_parity()
     phase_fixture()
-    serving_launches = phase_serving(predictor)
+    phase_config5_f32()
+    launches = {"config1 serving": phase_serving(predictor, "config1 serving", 128, 10, 16)}
     phase_http(predictor)
     totals = phase_kernel_times(layers, worst)
+    del predictor
+
+    predictor = preset_predictor("config5")
+    frame = np.tanh(rng.standard_normal((2, 256, 256, 3))).astype(np.float32)
+    c5_layers = capture_layers(predictor.generator, lambda: predictor.predict(frame, action[:2]))
+    check(len(c5_layers) == 11, f"expected 11 config5 generator layers, saw {len(c5_layers)}")
+    launches["config5 serving"] = phase_serving(predictor, "config5 serving", 32, 30, 8, timed=8)
+    totals["group_norm_act"] = phase_norm_times(c5_layers, worst_norm)
+    del predictor
+
     phase_gn_bwd_parity()
+    phase_gn_bwd_bf16_y()
     phase_autograd_parity(layers + d_layers)
+    phase_split_autograd()
     phase_train_fixture()
-    train_launches, calls, conv_calls = phase_training()
+    launches["config1 step"], calls, conv_calls, _ = phase_training(config1_train_config(),
+                                                                    "config1 step")
     phase_train_conv_parity(conv_calls, totals)
     totals["gn_act_bwd"] = phase_gn_bwd_times(calls)
+    from action_conditioned_gans_tpu_torch.config import get_preset
+
+    launches["config3 step"], _, conv_calls, norm_calls = phase_training(get_preset("config3"),
+                                                                         "config3 step")
+    phase_train_conv_parity(conv_calls, totals)
+    phase_train_norm_parity(norm_calls, totals["group_norm_act"])
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 
     kernels = []
@@ -867,7 +1187,7 @@ def main() -> int:
         t = totals[name]
         kernels.append(dict(
             name=name, route="cuda", source=info["source"], replaces=info["replaces"],
-            launches=serving_launches[name] + train_launches[name],
+            launches=sum(path[name] for path in launches.values()),
             max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",

@@ -34,9 +34,10 @@ def test_the_scan_sees_the_whole_port():
     assert "chip_smoke.py" in rel
     assert "action_conditioned_gans_tpu_torch/ops/kernels/conv.py" in rel
     for module in ("ops/kernels/gn_bwd.py", "models/discriminator.py", "train/losses.py",
-                   "train/state.py", "train/rollout.py", "train/step.py"):
+                   "train/state.py", "train/rollout.py", "train/step.py",
+                   "ops/kernels/norm_act.py", "ops/envelope.py"):
         assert f"action_conditioned_gans_tpu_torch/{module}" in rel
-    assert len(rel) >= 22
+    assert len(rel) >= 24
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))

@@ -238,7 +238,7 @@ def test_api_routes_cpu_tensors_to_plain_versions_without_launching():
 
 
 def test_activation_table_matches_kernel_enum():
-    # csrc/conv_common.cuh: ACT_NONE=0, ACT_LRELU=1, ACT_RELU=2, ACT_TANH=3.
+    # csrc/gn_common.cuh: ACT_NONE=0, ACT_LRELU=1, ACT_RELU=2, ACT_TANH=3.
     assert common.ACTIVATIONS == ("none", "lrelu", "relu", "tanh")
     y = t(rand(21, 50))
     for act in common.ACTIVATIONS:
