@@ -5,7 +5,8 @@ root of the checkout, compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). The hash covers every file in ``csrc/``, so an edited source never
 loads a stale library. A build happens on first use; :func:`build_all`
-starts one ``nvcc`` per source at once.
+starts one ``nvcc`` per source at once. ``ptxas -v`` reports each kernel's
+registers, shared memory and spills; :func:`ptxas_report` reads them back.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +26,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 KERNELS = ("conv_norm_act", "conv_transpose_norm_act", "group_norm_act", "gn_act_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -87,10 +89,30 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
         else:
+            with open(f"{paths[name]}.ptxas", "w") as f:
+                f.write(log)
             os.replace(tmp, paths[name])
     if failures:
         raise RuntimeError("\n".join(failures))
     return paths
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: registers, spill_stores, spill_loads, smem} of
+    library ``name`` as ``ptxas -v`` reported them when it was built."""
+    with open(f"{library_path(name)}.ptxas") as f:
+        log = f.read()
+    report = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        kernel = block.split("'", 1)[0]
+        report[kernel] = {
+            key: int(m[1]) if (m := re.search(pattern, block)) else 0
+            for key, pattern in (("registers", r"Used (\d+) registers"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("smem", r"(\d+) bytes smem"))
+        }
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -128,16 +150,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         )
         lib.acg_group_norm_act.restype = _I
         return
-    lib.acg_tile_rows.argtypes = [_I, _I]  # bf16, Cout
-    lib.acg_tile_rows.restype = _I
     if name == "conv_norm_act":
+        lib.acg_conv_path.argtypes = [_I, _I, _I, _P]  # bf16, Cin, Cout, x
+        lib.acg_conv_path.restype = _I
+        lib.acg_conv_tiles.argtypes = [_I, _I, _I, _I, _P]  # bf16, Cin, Cout, OH*OW, x
+        lib.acg_conv_tiles.restype = _I
         lib.acg_conv_norm_act.argtypes = (
-            [_P] * 9  # x, w, scale, bias, out, y, psum, psq, stats
+            [_P] * 10  # x, w, wt, scale, bias, out, y, psum, psq, stats
             + [_I] * 14  # bf16, B, H, W, Cin, OH, OW, Cout, KH, KW, stride, pad_h, pad_w, group_norm
             + [_I, _F, _I, _F, _P]  # groups, eps, act, leak, stream
         )
         lib.acg_conv_norm_act.restype = _I
     elif name == "conv_transpose_norm_act":
+        lib.acg_tile_rows.argtypes = [_I, _I]  # bf16, Cout
+        lib.acg_tile_rows.restype = _I
         lib.acg_conv_transpose_norm_act.argtypes = (
             [_P] * 9  # x, w, scale, bias, out, y, psum, psq, stats
             + [_I] * 7  # bf16, B, H, W, Cin, Cout, group_norm

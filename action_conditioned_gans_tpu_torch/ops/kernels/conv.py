@@ -10,7 +10,10 @@ Port of the JAX package's ``ops/pallas/conv.py``:
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it computes the plain version beside it (``*_plain``: the conv of
 ``ops/reference.py`` plus ``norm_act``). ``LAUNCHES`` counts kernel launches,
-one per wrapper call that reached the kernel.
+one per wrapper call that reached the kernel, and ``LAUNCHES_BY_MAINLOOP``
+splits kernel 1's by the GEMM mainloop its library chose
+(``acg_conv_path``): "wgmma" for bfloat16 layers with Cin % 4 == 0 and
+Cout % 64 == 0, "wmma" for the other bfloat16 ones, "fma" for float32.
 
 When a gradient is needed the call goes through :class:`ConvNormActFn` /
 :class:`ConvTransposeNormActFn`, the port of the Pallas ops' custom VJPs.
@@ -43,6 +46,8 @@ from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, act_bwd, r
 from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd
 
 LAUNCHES = {"conv_norm_act": 0, "conv_transpose_norm_act": 0}
+MAINLOOPS = ("fma", "wmma", "wgmma")  # by acg_conv_path's value
+LAUNCHES_BY_MAINLOOP = dict.fromkeys(MAINLOOPS, 0)
 _KINDS = ("group", "none")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Evaluates only the backward-data / backward-weight convolutions its
@@ -51,8 +56,9 @@ _convolution_backward = torch.ops.aten.convolution_backward
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_MAINLOOP):
+        for name in counts:
+            counts[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,19 +153,24 @@ def _launch_conv(x, w, scale, bias, o: _Opts):
     oh, pad_h, _ = same_pad(h, kh, o.stride)
     ow, pad_w, _ = same_pad(wd, kw, o.stride)
     lib = build.load("conv_norm_act")
-    slots = -(-(oh * ow) // lib.acg_tile_rows(_DTYPES[x.dtype], cout))
+    dt = _DTYPES[x.dtype]
+    mainloop = MAINLOOPS[lib.acg_conv_path(dt, cin, cout, x.data_ptr())]
+    slots = lib.acg_conv_tiles(dt, cin, cout, oh * ow, x.data_ptr())
     wk, g, ops = _epilogue_operands(x, w, scale, bias, o.kind, o.groups, oh * ow, slots)
+    # The wgmma mainloop reads the weights packed (Cout, K) into this scratch.
+    wt = torch.empty(wk.numel(), device=x.device, dtype=x.dtype) if mainloop == "wgmma" else None
     out = torch.empty((b, oh, ow, cout), device=x.device, dtype=x.dtype)
     ptrs = [_ptr(t) for t in ops]
     rc = lib.acg_conv_norm_act(
-        x.data_ptr(), wk.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), *ptrs[2:],
-        _DTYPES[x.dtype], b, h, wd, cin, oh, ow, cout, kh, kw, o.stride, pad_h, pad_w,
+        x.data_ptr(), wk.data_ptr(), _ptr(wt), ptrs[0], ptrs[1], out.data_ptr(), *ptrs[2:],
+        dt, b, h, wd, cin, oh, ow, cout, kh, kw, o.stride, pad_h, pad_w,
         int(o.kind == "group"), g, float(o.eps), ACTIVATIONS.index(o.act), float(o.leak),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc:
-        raise RuntimeError(f"conv_norm_act kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"conv_norm_act kernel launch failed ({mainloop}): CUDA error {rc}")
     LAUNCHES["conv_norm_act"] += 1
+    LAUNCHES_BY_MAINLOOP[mainloop] += 1
     return out, ops, g
 
 

@@ -9,11 +9,17 @@ Phases, each of which fails the run (non-zero exit, no final line):
 
 1. Print the card and its power limit; build every Hopper kernel from
    ``action_conditioned_gans_tpu_torch/csrc`` (one nvcc per source, in
-   parallel).
+   parallel) and print what ``ptxas -v`` says of kernel 1's wgmma
+   mainloop (registers, spills: none allowed).
 2. Per-kernel parity of kernels 1-2 at the seven config1 generator layer
-   shapes and the four config1 discriminator layer shapes (batch 8) and at
-   four ragged shapes: float32 with TF32 off within 1e-3 abs + 1e-3 rel of
-   the plain PyTorch version; bfloat16 within 3e-2 abs of the plain version
+   shapes and the four config1 discriminator layer shapes (batch 8), at
+   every other shape of kernel 1 on the main paths (the config3 and config5
+   fused conv layers, batch 2), and at ragged shapes, five of them on the
+   edges of kernel 1's wgmma mainloop (Cin 12 and 20 with 8-byte copies, K
+   no multiple of 64, 25- and 144-row planes, Cout 192 in three 64-wide
+   tiles, the 64 x 256 tile); each line names the mainloop. float32 with
+   TF32 off within 1e-3 abs + 1e-3 rel of the plain PyTorch version;
+   bfloat16 within 3e-2 abs of the plain version
    run in float32 on the same bfloat16 inputs (a bfloat16 plain version
    rounds its pre-norm conv output, which moves outputs near 4 by one
    bfloat16 step, 0.031). Kernel 3 against its plain version at its seven
@@ -27,14 +33,18 @@ Phases, each of which fails the run (non-zero exit, no final line):
    CPU's plain path.
 4. Serving in bfloat16 with seeded weights: counts set to 0, then
    Predictor.predict and Predictor.rollout, counts read and held to
-   EXPECTED (launches per generator call and routes): config1 at B=128 and
-   T=10, B=16 (4 / 3 / 0 launches of kernels 1 / 2 / 3, 7 fused layers);
-   config5 at 256x256, B=32 and T=30, B=8 (2 / 0 / 7 launches, 2 fused and
-   9 split layers). Outputs finite in [-1, 1]; both timed with CUDA events.
+   EXPECTED (launches per generator call, of them kernel 1 on its wgmma
+   mainloop, and routes): config1 at B=128 and T=10, B=16 (4 / 3 / 0
+   launches of kernels 1 / 2 / 3, 3 of the 4 on wgmma, 7 fused layers);
+   config5 at 256x256, B=32 and T=30, B=8 (2 / 0 / 7 launches, 2 of 2 on
+   wgmma, 2 fused and 9 split layers). Outputs finite in [-1, 1]; both
+   timed with CUDA events.
 5. The port's HTTP server answers /healthz, /predict and /rollout (float32
    and uint8) with exactly the direct calls' results (config1).
 6. Per-layer kernel, plain, library and bound times of the config1
-   generator layers at B=128 (the ``layer`` lines), and of kernel 3 at each
+   generator layers at B=128 (the ``layer`` lines, which name kernel 1's
+   mainloop; config1 discriminator conv_1..3 at B=128 too, outside the
+   per-predict sums), and of kernel 3 at each
    config5 layer that runs it at B=32 (the ``n3_layer`` lines, with the
    whole layer as the port splits it, as the fused conv kernel would run
    it, and as cuDNN + F.group_norm run it). Kernel-level times are device
@@ -57,8 +67,9 @@ Phases, each of which fails the run (non-zero exit, no final line):
    (d_loss, g_loss, g_recon) trajectory within tests/test_golden.py's
    tolerances.
 10. Training in bfloat16, T=1: config1 at B=128 with bfloat16 Adam moments
-    (12 / 3 / 0 / 11 launches of kernels 1-4 per step), then config3 at
-    B=32 (128x128, d_extra_layers=1: 23 / 4 / 2 / 25, kernel 3 under
+    (12 / 3 / 0 / 11 launches of kernels 1-4 per step, 9 of the 12 on
+    wgmma), then config3 at B=32 (128x128, d_extra_layers=1: 23 / 4 / 2 /
+    25, 20 of 23 on wgmma, kernel 3 under
     autograd in the D update and the G head, kernel 4 reading its bfloat16
     input as y). Each: 3 warm-up steps; counts set to 0, one step, counts
     read and every kernel call of it recorded; then 20 steps timed with CUDA
@@ -116,17 +127,19 @@ KERNEL_INFO = {
     ),
 }
 # Per main path: each kernel's launches per generator call (serving) or per
-# training step, and the (fused, split) routes its conv blocks took, as the
-# JAX package's envelope decides them (tests/test_torch_envelope.py).
+# training step, how many of kernel 1's ran its wgmma mainloop (the others
+# WMMA: the first layers, Cin 3 and 10), and the (fused, split) routes its
+# conv blocks took, as the JAX package's envelope decides them
+# (tests/test_torch_envelope.py, tests/test_torch_conv_wgmma.py).
 EXPECTED = {
     "config1 serving": (dict(conv_norm_act=4, conv_transpose_norm_act=3, group_norm_act=0,
-                             gn_act_bwd=0), (7, 0)),
+                             gn_act_bwd=0), 3, (7, 0)),
     "config1 step": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
-                          gn_act_bwd=11), (15, 0)),
+                          gn_act_bwd=11), 9, (15, 0)),
     "config5 serving": (dict(conv_norm_act=2, conv_transpose_norm_act=0, group_norm_act=7,
-                             gn_act_bwd=0), (2, 9)),
+                             gn_act_bwd=0), 2, (2, 9)),
     "config3 step": (dict(conv_norm_act=23, conv_transpose_norm_act=4, group_norm_act=2,
-                          gn_act_bwd=25), (27, 2)),
+                          gn_act_bwd=25), 20, (27, 2)),
 }
 # tests/test_golden.py's tolerances on (d_loss, g_loss, g_recon): (atol, rtol).
 GOLDEN_TOL = ((2e-4, 1e-3), (2e-3, 1e-3), (2e-4, 1e-3))
@@ -303,7 +316,11 @@ def work(block, shape, itemsize):
 def edge_layers():
     """Shapes off the main path that stress masking: odd and non-square
     planes, channel counts that are no multiple of 8, groups of 2-4
-    channels, narrow bfloat16 tiles with GroupNorm."""
+    channels, narrow bfloat16 tiles with GroupNorm; and the edges of kernel
+    1's wgmma mainloop (tests/test_torch_conv_wgmma.py): 8-byte copies (Cin
+    12, 20), K no multiple of 64 (108, 180), planes of 25 and 144 rows (BM
+    64, 128 with a partial second tile), Cout 192 as three 64-wide tiles,
+    the 64 x 256 tile (128 blocks) on a 25-row plane."""
     from action_conditioned_gans_tpu_torch.models.common import ConvBlock
 
     return [
@@ -312,7 +329,52 @@ def edge_layers():
          (3, 7, 10, 7)),
         ("edge_t_gn8", ConvBlock(6, 8, transpose=True, groups=4, act="relu"), (3, 5, 6, 6)),
         ("edge_t_gn80", ConvBlock(20, 80, transpose=True, groups=32), (2, 3, 3, 20)),
+        ("edge_wg_av4", ConvBlock(12, 192, kernel=3, stride=1), (3, 5, 5, 12)),
+        ("edge_wg_bm128", ConvBlock(20, 128, kernel=3, stride=1, act="relu"), (2, 12, 12, 20)),
+        ("edge_wg_none", ConvBlock(16, 64, kernel=4, stride=2, norm="none", act="tanh"),
+         (3, 9, 9, 16)),
+        ("edge_wg_bn64", ConvBlock(16, 192, kernel=4, stride=2), (2, 24, 24, 16)),
+        ("edge_wg_bn256", ConvBlock(12, 256, kernel=3, stride=1), (128, 5, 5, 12)),
     ]
+
+
+def preset_conv_layers(preset, batch=2):
+    """Kernel 1's distinct layers (fused, not transposed) of ``preset``'s G
+    and D in bfloat16, as (name, ConvBlock, input shape): the models run on
+    the meta device, routed as on the card."""
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
+    from action_conditioned_gans_tpu_torch.ops import envelope
+
+    m = get_preset(preset).model
+    with torch.device("meta"):
+        gen, disc = Generator(m), Discriminator(m)
+        s = m.image_size
+        frame = torch.empty(batch, s, s, m.image_channels)
+        action = torch.empty(batch, m.action_dim)
+        with torch.no_grad():
+            seen = capture_layers(gen, lambda: gen(frame, action), prefix=f"{preset}.G.")
+            seen += capture_layers(disc, lambda: disc(frame, frame, action), prefix=f"{preset}.D.")
+    layers, keys = [], set()
+    for name, block, shape in seen:
+        key = (shape[1:], tuple(block.kernel.shape), block.stride, block.norm, block.act)
+        if block.transpose or key in keys or envelope.route(
+                shape, tuple(block.kernel.shape), block.stride, False, block.norm, block.groups,
+                torch.bfloat16) != "fused":
+            continue
+        keys.add(key)
+        layers.append((name, block, shape))
+    return layers
+
+
+def mainloop_of(fn):
+    """Runs ``fn`` and returns the kernel-1 mainloop(s) it launched."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import conv
+
+    before = dict(conv.LAUNCHES_BY_MAINLOOP)
+    out = fn()
+    ran = [k for k, v in conv.LAUNCHES_BY_MAINLOOP.items() if v > before[k]]
+    return out, "+".join(ran) or "-"
 
 
 def phase_parity(layers, batch=8):
@@ -329,12 +391,12 @@ def phase_parity(layers, batch=8):
             ok32 = bool(((got - want).abs() <= 1e-3 + 1e-3 * want.abs()).all())
             xb = x.to(torch.bfloat16)
             wb = w.to(torch.bfloat16)
-            got16 = kernel(xb, wb, s, b)
+            got16, mainloop = mainloop_of(lambda: kernel(xb, wb, s, b))
             want16 = plain(xb.float(), wb.float(), s, b)
             torch.cuda.synchronize()
             err16 = float((got16.float() - want16).abs().max())
         say(f"parity {lname:14s} {name:24s} x{tuple(x.shape)} f32 max|d|={err32:.3e} "
-            f"bf16 max|d|={err16:.3e}")
+            f"bf16 max|d|={err16:.3e} ({mainloop})")
         check(ok32 and np.isfinite(err32), f"{lname}: float32 kernel vs plain beyond 1e-3")
         check(err16 <= 3e-2, f"{lname}: bfloat16 kernel vs plain beyond 3e-2 ({err16})")
         worst[name] = max(worst.get(name, 0.0), err16)
@@ -427,7 +489,8 @@ def reset_launches():
 def read_launches():
     from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
 
-    return {**conv.LAUNCHES, **norm_act.LAUNCHES, **gn_bwd.LAUNCHES}
+    by_mainloop = {f"conv_norm_act:{k}": v for k, v in conv.LAUNCHES_BY_MAINLOOP.items()}
+    return {**conv.LAUNCHES, **norm_act.LAUNCHES, **gn_bwd.LAUNCHES, **by_mainloop}
 
 
 def check_counts(path, launches, times):
@@ -435,12 +498,15 @@ def check_counts(path, launches, times):
     steps on ``path`` against EXPECTED."""
     from action_conditioned_gans_tpu_torch.ops import api
 
-    per, (fused, split) = EXPECTED[path]
+    per, wgmma, (fused, split) = EXPECTED[path]
     say(f"main path {path}: launches {launches}, routes {api.ROUTES} over {times} "
         f"{'steps' if 'step' in path else 'generator calls'}")
     for name in KERNEL_INFO:
         want = per[name] * times
         check(launches[name] == want, f"{path}: {name} launched {launches[name]} times, want {want}")
+    by = {k: launches[f"conv_norm_act:{k}"] for k in ("wgmma", "wmma", "fma")}
+    want = dict(wgmma=wgmma * times, wmma=(per["conv_norm_act"] - wgmma) * times, fma=0)
+    check(by == want, f"{path}: kernel 1 by mainloop {by}, want {want}")
     want = {"fused": fused * times, "split": split * times}
     check(api.ROUTES == want, f"{path}: routes {api.ROUTES}, want {want}")
 
@@ -528,17 +594,19 @@ def phase_http(predictor):
         thread.join(timeout=30)
 
 
-def phase_kernel_times(layers, worst_b8):
+def phase_kernel_times(layers, worst_b8, extra=()):
     """Each layer at its main-path shape (B=128, bfloat16): kernel, plain
-    version and library composite times, and the bound."""
+    version and library composite times, and the bound. ``layers`` are
+    summed into the per-kernel totals (one config1 predict); ``extra``
+    layers get their ``layer`` lines only."""
     totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
                       bound_ms=0.0, max_abs_err=worst_b8[n]) for n in worst_b8}
     with torch.inference_mode():
-        for i, (lname, block, shape) in enumerate(layers):
+        for i, (lname, block, shape) in enumerate([*layers, *extra]):
             name, kernel, plain = kernel_call(block)
             shape = (128, *shape[1:])
             x, w, s, b = layer_inputs(block, shape, 128, torch.bfloat16, seed=200 + i)
-            got = kernel(x, w, s, b)
+            got, mainloop = mainloop_of(lambda: kernel(x, w, s, b))
             want = plain(x.float(), w.to(torch.bfloat16).float(), s, b)
             err = float((got.float() - want).abs().max())
             check(err <= 3e-2, f"{lname}: bfloat16 kernel vs plain at B={shape[0]} ({err})")
@@ -547,11 +615,14 @@ def phase_kernel_times(layers, worst_b8):
             library_ms = device_time_ms(library_call(block, x, w, s, b))
             flops, nbytes = work(block, shape, 2)
             ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            row = dict(layer=lname, kernel=name, shape=list(shape), flops=flops, bytes=nbytes,
-                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            row = dict(layer=lname, kernel=name, mainloop=mainloop, shape=list(shape), flops=flops,
+                       bytes=nbytes, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=max(ops_ms, bytes_ms),
-                       bound_by="operations" if ops_ms >= bytes_ms else "bytes", max_abs_err=err)
+                       bound_by="operations" if ops_ms >= bytes_ms else "bytes", max_abs_err=err,
+                       tflops=flops / ms / 1e9)
             say("layer " + json.dumps(row))
+            if i >= len(layers):
+                continue
             t = totals[name]
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 t[key] += row[key]
@@ -813,7 +884,8 @@ def phase_train_conv_parity(conv_calls, worst):
 # Kernel-name fragments of the port's own kernels (csrc/).
 # The GroupNorm stats and apply passes (gn_common.cuh) serve both the conv
 # kernels' epilogue and kernel 3.
-OWN_KERNELS = {"conv_wmma_kernel": "conv fwd GEMM", "conv_fma_kernel": "conv fwd GEMM",
+OWN_KERNELS = {"conv_wgmma_kernel": "conv fwd GEMM", "conv_wmma_kernel": "conv fwd GEMM",
+               "conv_fma_kernel": "conv fwd GEMM", "pack_weights_kernel": "conv weight packing",
                "gn_partials_kernel": "group_norm_act partial sums",
                "gn_stats_kernel": "GroupNorm stats (conv epilogue, group_norm_act)",
                "gn_apply_kernel": "GroupNorm apply (conv epilogue, group_norm_act)",
@@ -1138,6 +1210,11 @@ def main() -> int:
     paths = build.build_all()
     build_s = time.perf_counter() - t0
     say(f"built {sorted(paths)} for sm_90a in {build_s:.1f} s -> {build.BUILD_DIR}")
+    wgmma = {k: v for k, v in build.ptxas_report("conv_norm_act").items() if "conv_wgmma_kernel" in k}
+    check(len(wgmma) == 10, f"ptxas reported {len(wgmma)} conv_wgmma_kernel instances, want 10")
+    for k, v in sorted(wgmma.items()):
+        say(f"ptxas conv_wgmma_kernel<BM, BN, AV>={k.split('kernel', 1)[1][:22]}: {v}")
+        check(v["spill_stores"] == 0 and v["spill_loads"] == 0, f"conv_wgmma_kernel spills: {k} {v}")
 
     predictor = preset_predictor("config1")
     rng = np.random.default_rng(2)
@@ -1148,13 +1225,16 @@ def main() -> int:
     d_layers = discriminator_layers()
     check(len(d_layers) == 4, f"expected 4 discriminator layers, saw {len(d_layers)}")
     worst = phase_parity(layers + d_layers)
+    for preset in ("config3", "config5"):
+        more = phase_parity(preset_conv_layers(preset), batch=2)
+        worst["conv_norm_act"] = max(worst["conv_norm_act"], more["conv_norm_act"])
     phase_parity(edge_layers(), batch=None)
     worst_norm = phase_norm_parity()
     phase_fixture()
     phase_config5_f32()
     launches = {"config1 serving": phase_serving(predictor, "config1 serving", 128, 10, 16)}
     phase_http(predictor)
-    totals = phase_kernel_times(layers, worst)
+    totals = phase_kernel_times(layers, worst, extra=d_layers[1:])
     del predictor
 
     predictor = preset_predictor("config5")
