@@ -15,7 +15,8 @@
 // stride-1 conv over the input padded by 1 (PH, PW = H, W; K = 4*Cin):
 //   y[2a+r, 2b+c] = sum_{dy,dx} x[a+dy+r-1, b+dx+c-1] @ w[2dy+r, 2dx+c].
 //
-// Products: bfloat16 operands go to the tensor cores (WMMA 16x16x16, float32
+// Products: bfloat16 operands go to the tensor cores (WMMA 16x16x16 here,
+// wgmma in conv_wgmma.cuh, mma.sync in conv_transpose_narrow.cuh; float32
 // accumulators); float32 operands stay on the CUDA cores (FMA), so the
 // float32 path keeps full float32 products.
 //
@@ -52,9 +53,10 @@ struct Geom {
   int tiles;           // row tiles per (sample, phase): ceil(PH*PW / tile rows)
 };
 
-// Output rows per tile. bfloat16 layers with at most 16 output channels
-// (the generator's last layer has 3) take a narrow 128x16 tile instead of
-// 64x64, so 3 channels waste 13 of 16 columns rather than 61 of 64.
+// Output rows per tile of the FMA and WMMA mainloops. bfloat16 calls with
+// at most 16 output channels that reach them (a GroupNorm conv-transpose
+// with Cout <= 16; the generator's norm-free last layer takes
+// conv_transpose_narrow.cuh) take a narrow 128x16 tile instead of 64x64.
 inline int tile_rows(int bf16, int cout) { return bf16 && cout <= 16 ? 128 : 64; }
 
 // -- index maps -----------------------------------------------------------------

@@ -30,36 +30,15 @@ namespace {
 // Values of acg_conv_path: which mainloop a call takes.
 constexpr int PATH_FMA = 0, PATH_WMMA = 1, PATH_WGMMA = 2;
 
-// Channels per copy of the wgmma gather: 8 (16 bytes) when Cin % 8 == 0 and
-// x is 16-byte aligned, 4 (8 bytes) when Cin % 4 == 0 and x 8-byte aligned;
-// 0 when neither holds.
-int wgmma_av(int cin, const void* x) {
-  if (cin % 8 == 0 && (uintptr_t)x % 16 == 0) return 8;
-  if (cin % 4 == 0 && (uintptr_t)x % 8 == 0) return 4;
-  return 0;
-}
-
 int path(int bf16, int cin, int cout, const void* x) {
   if (!bf16) return PATH_FMA;
-  return cout % 64 == 0 && wgmma_av(cin, x) ? PATH_WGMMA : PATH_WMMA;
-}
-
-int wgmma_bm(int pixels) { return pixels >= 128 ? 128 : 64; }
-
-// 256 columns for a 64-row tile when Cout % 256 == 0 and the grid keeps at
-// least 128 blocks: every block re-reads the whole K of its A rows and B
-// columns from L2, and a wider tile halves the A side. With fewer blocks
-// the card idles, and 128 columns win (on an H100, config1's layers at
-// B=128 run faster at 256, config3's at B=32 at 128). blocks = B * tiles.
-int wgmma_bn(int cout, int bm, int blocks) {
-  if (bm == 64 && cout % 256 == 0 && (long long)blocks * (cout / 256) >= 128) return 256;
-  return cout % 128 == 0 ? 128 : 64;
+  return cout % 64 == 0 && acg::wg::wgmma_av(cin, x) ? PATH_WGMMA : PATH_WMMA;
 }
 
 // Row tiles per sample. The FMA and WMMA launcher (conv_common.cuh) derives
 // the same count from acg::tile_rows.
 int tiles(int bf16, int cin, int cout, int pixels, const void* x) {
-  const int bm = path(bf16, cin, cout, x) == PATH_WGMMA ? wgmma_bm(pixels)
+  const int bm = path(bf16, cin, cout, x) == PATH_WGMMA ? acg::wg::wgmma_bm(pixels)
                                                         : acg::tile_rows(bf16, cout);
   return (pixels + bm - 1) / bm;
 }
@@ -95,8 +74,10 @@ extern "C" int acg_conv_norm_act(const void* x, const void* w, void* wt, const v
     return acg::launch_conv_norm_act<false>(g, bf16, x, w, scale, bias, out, y, psum, psq, stats,
                                             group_norm, groups, eps, act, leak,
                                             (cudaStream_t)stream);
-  const int bm = wgmma_bm(OH * OW);
-  return acg::wg::launch_conv_norm_act(g, bm, wgmma_bn(Cout, bm, B * g.tiles), wgmma_av(Cin, x),
-                                       x, w, wt, scale, bias, out, y, psum, psq, stats,
-                                       group_norm, groups, eps, act, leak, (cudaStream_t)stream);
+  namespace wg = acg::wg;
+  const int bm = wg::wgmma_bm(OH * OW);
+  return wg::launch_conv_norm_act<false>(g, bm, wg::wgmma_bn(Cout, bm, B * g.tiles),
+                                         wg::wgmma_av(Cin, x), x, w, wt, scale, bias, out, y,
+                                         psum, psq, stats, group_norm, groups, eps, act, leak,
+                                         (cudaStream_t)stream);
 }

@@ -1,15 +1,19 @@
-// Hopper mainloop of kernel 1 (conv_norm_act.cu) for bfloat16 layers with
+// Hopper mainloop of the fused conv kernels for bfloat16 layers with
 // Cin % 4 == 0 and Cout % 64 == 0: warpgroup MMA (wgmma) reading a
 // multi-stage shared-memory ring that cp.async fills with the implicit-im2col
-// gather. The index maps (row_at, tap_at, a_offset), the epilogue
-// (tile_epilogue) and the GroupNorm passes are conv_common.cuh's, unchanged.
+// gather. Kernel 1 (conv_norm_act.cu) runs it with TRANSPOSE = false, kernel 2
+// (conv_transpose_norm_act.cu) with TRANSPOSE = true: the grid's z axis walks
+// (sample, phase) and each of the four subpixel phases is a K = 4*Cin GEMM
+// over one sample's H*W input positions. The index maps (row_at, tap_at,
+// a_offset), the epilogue (tile_epilogue) and the GroupNorm passes are
+// conv_common.cuh's, unchanged.
 //
-// Tile: BM output rows of one sample's plane (128 when the plane has at
+// Tile: BM output rows of one (sample, phase) plane (128 when the plane has at
 // least 128 rows, else 64) x BN output channels, depth BK = 64 per stage:
 // one 128-byte swizzle row of bfloat16. BN is 256 for a 64-row tile when
 // Cout % 256 == 0 and the grid keeps at least 128 blocks (it halves the
 // re-reads of A, which bound these tiles through L2), else 128 when
-// Cout % 128 == 0, else 64 (conv_norm_act.cu picks). Every block has
+// Cout % 128 == 0, else 64 (wgmma_bm / wgmma_bn below). Every block has
 // NT = 256 threads, two warpgroups, as tile_epilogue expects: with BM = 128
 // each warpgroup takes 64 rows and all BN columns; with BM = 64 both take
 // the 64 rows and BN/2 columns each.
@@ -18,13 +22,15 @@
 // both K-major in the 128-byte swizzle: row r's 16-byte chunk c sits at byte
 // r*128 + ((c ^ (r % 8)) * 16). Both start on 1024-byte boundaries, so the
 // 8-row x 128-byte swizzle atoms of the wgmma descriptors line up. B comes
-// from the weights packed as (Cout, K) by pack_weights_kernel.
+// from the weights packed as (phases, Cout, K) by pack_weights_kernel; for the
+// transpose, phase (r, c)'s slab holds the phase kernel w[2dy+r, 2dx+c].
 //
 // A copy moves AV channels of one tap (16 bytes when Cin % 8 == 0, 8 bytes
 // when Cin % 4 == 0): as Cin % AV == 0, a copy never straddles two taps, but
 // a 64-deep stage does, so each copy takes its own tap_at. A copy with
-// src-size 0 writes zeros: the SAME padding, rows past the plane and depths
-// k >= K (the last stage of K = 2340 is partial).
+// src-size 0 writes zeros: the SAME padding (the transpose's one-pixel
+// border), rows past the plane and depths k >= K (the last stage of K = 2340
+// or K = 48 is partial).
 //
 // Per k-step, STAGES - 1 stages in flight:
 //   1. cp.async.wait_group STAGES-2: this thread's copies of the step landed;
@@ -45,10 +51,15 @@ namespace wg {
 constexpr int BK = 64;             // depths per stage
 constexpr int ROW_BYTES = BK * 2;  // one swizzle row
 
-template <int BM, int BN>
+// Ring stages: 3 for the wide tiles; 4 for kernel 1's narrower ones. The
+// transposed GEMMs (K = 4*Cin: 4 to 32 k-steps) take 3 throughout, which
+// fits a third block of 128 x 64 or 64 x 128 on an SM (in a timing of both
+// on an H100, 3 stages ran the 128 x 64 dec_1 layers faster, and no
+// transposed layer slower).
+template <int BM, int BN, bool TRANSPOSE>
 struct Shape {
   static constexpr int WN = BM == 128 ? BN : BN / 2;  // columns per warpgroup
-  static constexpr int STAGES = BM + BN >= 256 ? 3 : 4;
+  static constexpr int STAGES = TRANSPOSE || BM + BN >= 256 ? 3 : 4;
   static constexpr int A_BYTES = BM * ROW_BYTES;
   static constexpr int STAGE_BYTES = (BM + BN) * ROW_BYTES;
   static constexpr int LDC = BN + 4;
@@ -56,6 +67,29 @@ struct Shape {
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
   static_assert(BM * LDC * 4 <= STAGES * STAGE_BYTES, "Cs fits the ring");
 };
+
+// Channels per copy of the gather: 8 (16 bytes) when Cin % 8 == 0 and x is
+// 16-byte aligned, 4 (8 bytes) when Cin % 4 == 0 and x 8-byte aligned; 0 when
+// neither holds (the call cannot take this mainloop).
+inline int wgmma_av(int cin, const void* x) {
+  if (cin % 8 == 0 && (uintptr_t)x % 16 == 0) return 8;
+  if (cin % 4 == 0 && (uintptr_t)x % 8 == 0) return 4;
+  return 0;
+}
+
+// Rows of a tile, from the rows of one (sample, phase) plane.
+inline int wgmma_bm(int pixels) { return pixels >= 128 ? 128 : 64; }
+
+// 256 columns for a 64-row tile when Cout % 256 == 0 and the grid keeps at
+// least 128 blocks: every block re-reads the whole K of its A rows and B
+// columns from L2, and a wider tile halves the A side. With fewer blocks
+// the card idles, and 128 columns win (on an H100, config1's layers at
+// B=128 run faster at 256, config3's at B=32 at 128). blocks = B * phases *
+// tiles.
+inline int wgmma_bn(int cout, int bm, int blocks) {
+  if (bm == 64 && cout % 256 == 0 && (long long)blocks * (cout / 256) >= 128) return 256;
+  return cout % 128 == 0 ? 128 : 64;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -181,35 +215,38 @@ struct Mma<128> {
   }
 };
 
-// The weights HWIO (K, Cout) -> (Cout, K), the K-major B operand; 32x32
-// tiles through shared memory so both sides are coalesced.
-// Grid: (ceil(K/32), ceil(Cout/32)). Block: NT threads.
+// The weights HWIO -> (phases, Cout, K), the K-major B operand: phase
+// (r, c)'s depth k reads HWIO row w_row<TRANSPOSE>(g, k, r, c). 32x32 tiles
+// through shared memory so both sides are coalesced.
+// Grid: (ceil(K/32), ceil(Cout/32), phases). Block: NT threads.
+template <bool TRANSPOSE>
 __global__ void __launch_bounds__(NT) pack_weights_kernel(const __nv_bfloat16* __restrict__ w,
-                                                          __nv_bfloat16* __restrict__ wt, int K,
-                                                          int Cout) {
+                                                          __nv_bfloat16* __restrict__ wt, Geom g) {
   __shared__ __nv_bfloat16 t[32][33];
-  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, phase = blockIdx.z;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   for (int i = ty; i < 32; i += NT / 32) {
     const int k = k0 + i, n = n0 + tx;
-    if (k < K && n < Cout) t[i][tx] = w[(size_t)k * Cout + n];
+    if (k < g.K && n < g.Cout)
+      t[i][tx] = w[w_row<TRANSPOSE>(g, k, phase >> 1, phase & 1) * g.Cout + n];
   }
   __syncthreads();
+  __nv_bfloat16* wp = wt + (size_t)phase * g.Cout * g.K;
   for (int i = ty; i < 32; i += NT / 32) {
     const int n = n0 + i, k = k0 + tx;
-    if (n < Cout && k < K) wt[(size_t)n * K + k] = t[tx][i];
+    if (n < g.Cout && k < g.K) wp[(size_t)n * g.K + k] = t[tx][i];
   }
 }
 
-// Grid: (g.tiles, Cout/BN, B). Block: NT threads. Dynamic shared memory:
-// Shape<BM, BN>::SMEM_BYTES.
-template <int BM, int BN, int AV>
+// Grid: (g.tiles, Cout/BN, B*phases). Block: NT threads. Dynamic shared
+// memory: Shape<BM, BN, TRANSPOSE>::SMEM_BYTES.
+template <bool TRANSPOSE, int BM, int BN, int AV>
 __global__ void __launch_bounds__(NT) conv_wgmma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, float* __restrict__ y,
     float* __restrict__ psum, float* __restrict__ psq, Geom g, int group_norm, int act,
     float leak) {
-  using S = Shape<BM, BN>;
+  using S = Shape<BM, BN, TRANSPOSE>;
   constexpr int STAGES = S::STAGES, WN = S::WN;
   constexpr int CPR = BK / AV;         // copies per tile row
   constexpr int RSTEP = NT / CPR;      // rows between one thread's copies
@@ -226,7 +263,9 @@ __global__ void __launch_bounds__(NT) conv_wgmma_kernel(
   const int wgi = tid / 128;
   const int tile = blockIdx.x;
   const int n0 = blockIdx.y * BN;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / g.phases;
+  const int phase = blockIdx.z - b * g.phases;
+  const int pr = phase >> 1, pc = phase & 1;
   const int p0 = tile * BM;
   const __nv_bfloat16* xb = x + (size_t)b * g.H * g.W * g.Cin;
 
@@ -236,14 +275,14 @@ __global__ void __launch_bounds__(NT) conv_wgmma_kernel(
   const int cc = (c * CHUNK) >> 4, cb = (c * CHUNK) & 15;
   Row rows[A_PER];
 #pragma unroll
-  for (int i = 0; i < A_PER; ++i) rows[i] = row_at<false>(g, p0 + r0 + RSTEP * i, 0, 0);
-  const __nv_bfloat16* wrow = wt + (size_t)(n0 + r0) * g.K;
+  for (int i = 0; i < A_PER; ++i) rows[i] = row_at<TRANSPOSE>(g, p0 + r0 + RSTEP * i, pr, pc);
+  const __nv_bfloat16* wrow = wt + ((size_t)phase * g.Cout + n0 + r0) * g.K;
 
   auto load = [&](int kt) {
     const uint32_t a_st = ring + (kt % STAGES) * S::STAGE_BYTES;
     const uint32_t b_st = a_st + S::A_BYTES;
     const int k = kt * BK + c * AV;
-    const Tap t = tap_at<false>(g, k);
+    const Tap t = tap_at<TRANSPOSE>(g, k);
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
       const long long o = a_offset(g, rows[i], t);
@@ -302,8 +341,8 @@ __global__ void __launch_bounds__(NT) conv_wgmma_kernel(
     *reinterpret_cast<float2*>(c0 + 8 * S::LDC) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
   __syncthreads();
-  tile_epilogue<__nv_bfloat16, false, BM, BN, S::LDC>(Cs, g, b, 0, tile, n0, bias, out, y, psum,
-                                                       psq, group_norm, act, leak);
+  tile_epilogue<__nv_bfloat16, TRANSPOSE, BM, BN, S::LDC>(Cs, g, b, phase, tile, n0, bias, out, y,
+                                                           psum, psq, group_norm, act, leak);
 }
 
 // The GEMM kernel's operands, as launch_conv_norm_act hands them on.
@@ -317,39 +356,40 @@ struct GemmArgs {
   float leak;
 };
 
-template <int BM, int BN, int AV>
+template <bool TRANSPOSE, int BM, int BN, int AV>
 int launch_gemm(const Geom& g, const GemmArgs& a, cudaStream_t stream) {
-  auto kernel = conv_wgmma_kernel<BM, BN, AV>;
-  constexpr int smem = Shape<BM, BN>::SMEM_BYTES;
+  auto kernel = conv_wgmma_kernel<TRANSPOSE, BM, BN, AV>;
+  constexpr int smem = Shape<BM, BN, TRANSPOSE>::SMEM_BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(g.tiles, g.Cout / BN, g.B);
+  const dim3 grid(g.tiles, g.Cout / BN, g.B * g.phases);
   kernel<<<grid, NT, smem, stream>>>(a.x, a.wt, a.bias, a.out, a.y, a.psum, a.psq, g,
                                      a.group_norm, a.act, a.leak);
   return (int)cudaGetLastError();
 }
 
-template <int BM, int BN>
+template <bool TRANSPOSE, int BM, int BN>
 int launch_gemm_av(int av, const Geom& g, const GemmArgs& a, cudaStream_t stream) {
-  return av == 8 ? launch_gemm<BM, BN, 8>(g, a, stream) : launch_gemm<BM, BN, 4>(g, a, stream);
+  return av == 8 ? launch_gemm<TRANSPOSE, BM, BN, 8>(g, a, stream)
+                 : launch_gemm<TRANSPOSE, BM, BN, 4>(g, a, stream);
 }
 
-// Packs w into wt (Cout*K bfloat16 of scratch), runs the wgmma GEMM with
-// tile bm x bn (128 x 64 / 128, or 64 x 64 / 128 / 256) and copy width av
-// (g.tiles already set from bm), then the GroupNorm passes when group_norm
-// is set. Returns the first launch error.
-inline int launch_conv_norm_act(const Geom& g, int bm, int bn, int av, const void* x,
-                                const void* w, void* wt, const void* scale, const void* bias,
-                                void* out, void* y, void* psum, void* psq, void* stats,
-                                int group_norm, int groups, float eps, int act, float leak,
-                                cudaStream_t stream) {
-  if (g.B > 65535 || g.Cout % bn != 0 || g.Cout / bn > 65535 || wt == nullptr ||
+// Packs w into wt (phases*Cout*K bfloat16 of scratch, as many as w holds),
+// runs the wgmma GEMM with tile bm x bn (128 x 64 / 128, or 64 x 64 / 128 /
+// 256) and copy width av (g.tiles already set from bm), then the GroupNorm
+// passes when group_norm is set. Returns the first launch error.
+template <bool TRANSPOSE>
+int launch_conv_norm_act(const Geom& g, int bm, int bn, int av, const void* x, const void* w,
+                         void* wt, const void* scale, const void* bias, void* out, void* y,
+                         void* psum, void* psq, void* stats, int group_norm, int groups,
+                         float eps, int act, float leak, cudaStream_t stream) {
+  if (g.B * g.phases > 65535 || g.Cout % bn != 0 || g.Cout / bn > 65535 || wt == nullptr ||
       (bm == 128 && bn == 256))
     return (int)cudaErrorInvalidConfiguration;
   auto* wtb = (__nv_bfloat16*)wt;
-  const dim3 pgrid((g.K + 31) / 32, (g.Cout + 31) / 32);
-  pack_weights_kernel<<<pgrid, NT, 0, stream>>>((const __nv_bfloat16*)w, wtb, g.K, g.Cout);
+  const dim3 pgrid((g.K + 31) / 32, (g.Cout + 31) / 32, g.phases);
+  pack_weights_kernel<TRANSPOSE><<<pgrid, NT, 0, stream>>>((const __nv_bfloat16*)w, wtb, g);
   const cudaError_t packed = cudaGetLastError();
   if (packed != cudaSuccess) return (int)packed;
 
@@ -357,16 +397,17 @@ inline int launch_conv_norm_act(const Geom& g, int bm, int bn, int av, const voi
                    (float*)y, (float*)psum, (float*)psq, group_norm, act, leak};
   int err;
   if (bm == 128)
-    err = bn == 128 ? launch_gemm_av<128, 128>(av, g, a, stream)
-                    : launch_gemm_av<128, 64>(av, g, a, stream);
+    err = bn == 128 ? launch_gemm_av<TRANSPOSE, 128, 128>(av, g, a, stream)
+                    : launch_gemm_av<TRANSPOSE, 128, 64>(av, g, a, stream);
   else
-    err = bn == 256   ? launch_gemm_av<64, 256>(av, g, a, stream)
-          : bn == 128 ? launch_gemm_av<64, 128>(av, g, a, stream)
-                      : launch_gemm_av<64, 64>(av, g, a, stream);
+    err = bn == 256   ? launch_gemm_av<TRANSPOSE, 64, 256>(av, g, a, stream)
+          : bn == 128 ? launch_gemm_av<TRANSPOSE, 64, 128>(av, g, a, stream)
+                      : launch_gemm_av<TRANSPOSE, 64, 64>(av, g, a, stream);
   if (err != 0 || !group_norm) return err;
+  // One GroupNorm slot per (phase, row tile) of a sample, as conv_common.cuh.
   return launch_gn_stats_apply<float, __nv_bfloat16>(
       a.y, a.psum, a.psq, (float*)stats, (const float*)scale, a.bias, a.out, g.B, g.Cout,
-      g.tiles, groups, g.OH * g.OW, eps, act, leak, stream);
+      g.phases * g.tiles, groups, g.OH * g.OW, eps, act, leak, stream);
 }
 
 }  // namespace wg

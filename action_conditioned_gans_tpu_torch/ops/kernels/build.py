@@ -162,10 +162,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         )
         lib.acg_conv_norm_act.restype = _I
     elif name == "conv_transpose_norm_act":
-        lib.acg_tile_rows.argtypes = [_I, _I]  # bf16, Cout
-        lib.acg_tile_rows.restype = _I
+        # bf16, Cin, Cout, group_norm, H, W, x
+        for fn in (lib.acg_conv_transpose_path, lib.acg_conv_transpose_tiles):
+            fn.argtypes = [_I] * 6 + [_P]
+            fn.restype = _I
         lib.acg_conv_transpose_norm_act.argtypes = (
-            [_P] * 9  # x, w, scale, bias, out, y, psum, psq, stats
+            [_P] * 10  # x, w, wt, scale, bias, out, y, psum, psq, stats
             + [_I] * 7  # bf16, B, H, W, Cin, Cout, group_norm
             + [_I, _F, _I, _F, _P]  # groups, eps, act, leak, stream
         )

@@ -11,9 +11,11 @@ For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it computes the plain version beside it (``*_plain``: the conv of
 ``ops/reference.py`` plus ``norm_act``). ``LAUNCHES`` counts kernel launches,
 one per wrapper call that reached the kernel, and ``LAUNCHES_BY_MAINLOOP``
-splits kernel 1's by the GEMM mainloop its library chose
-(``acg_conv_path``): "wgmma" for bfloat16 layers with Cin % 4 == 0 and
-Cout % 64 == 0, "wmma" for the other bfloat16 ones, "fma" for float32.
+splits them by the mainloop the kernel's library chose, keyed
+"kernel:mainloop" (``acg_conv_path``, ``acg_conv_transpose_path``): "wgmma"
+for bfloat16 layers with Cin % 4 == 0 and Cout % 64 == 0, "narrow" for the
+conv-transpose's bfloat16 layers with Cout <= 16 and no GroupNorm, "wmma" for
+the other bfloat16 ones, "fma" for float32.
 
 When a gradient is needed the call goes through :class:`ConvNormActFn` /
 :class:`ConvTransposeNormActFn`, the port of the Pallas ops' custom VJPs.
@@ -46,8 +48,12 @@ from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, act_bwd, r
 from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd
 
 LAUNCHES = {"conv_norm_act": 0, "conv_transpose_norm_act": 0}
-MAINLOOPS = ("fma", "wmma", "wgmma")  # by acg_conv_path's value
-LAUNCHES_BY_MAINLOOP = dict.fromkeys(MAINLOOPS, 0)
+# By the value of acg_conv_path / acg_conv_transpose_path.
+MAINLOOPS = {
+    "conv_norm_act": ("fma", "wmma", "wgmma"),
+    "conv_transpose_norm_act": ("fma", "wmma", "wgmma", "narrow"),
+}
+LAUNCHES_BY_MAINLOOP = {f"{k}:{m}": 0 for k, loops in MAINLOOPS.items() for m in loops}
 _KINDS = ("group", "none")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Evaluates only the backward-data / backward-weight convolutions its
@@ -154,7 +160,7 @@ def _launch_conv(x, w, scale, bias, o: _Opts):
     ow, pad_w, _ = same_pad(wd, kw, o.stride)
     lib = build.load("conv_norm_act")
     dt = _DTYPES[x.dtype]
-    mainloop = MAINLOOPS[lib.acg_conv_path(dt, cin, cout, x.data_ptr())]
+    mainloop = MAINLOOPS["conv_norm_act"][lib.acg_conv_path(dt, cin, cout, x.data_ptr())]
     slots = lib.acg_conv_tiles(dt, cin, cout, oh * ow, x.data_ptr())
     wk, g, ops = _epilogue_operands(x, w, scale, bias, o.kind, o.groups, oh * ow, slots)
     # The wgmma mainloop reads the weights packed (Cout, K) into this scratch.
@@ -170,7 +176,7 @@ def _launch_conv(x, w, scale, bias, o: _Opts):
     if rc:
         raise RuntimeError(f"conv_norm_act kernel launch failed ({mainloop}): CUDA error {rc}")
     LAUNCHES["conv_norm_act"] += 1
-    LAUNCHES_BY_MAINLOOP[mainloop] += 1
+    LAUNCHES_BY_MAINLOOP[f"conv_norm_act:{mainloop}"] += 1
     return out, ops, g
 
 
@@ -185,19 +191,25 @@ def _launch_conv_transpose(x, w, scale, bias, o: _Opts):
     b, h, wd, cin = x.shape
     cout = w.shape[3]
     lib = build.load("conv_transpose_norm_act")
-    slots = 4 * -(-(h * wd) // lib.acg_tile_rows(_DTYPES[x.dtype], cout))
+    dt, gn = _DTYPES[x.dtype], int(o.kind == "group")
+    plan = (dt, cin, cout, gn, h, wd, x.data_ptr())
+    mainloop = MAINLOOPS["conv_transpose_norm_act"][lib.acg_conv_transpose_path(*plan)]
+    slots = lib.acg_conv_transpose_tiles(*plan)
     wk, g, ops = _epilogue_operands(x, w, scale, bias, o.kind, o.groups, 4 * h * wd, slots)
+    # The wgmma mainloop reads the four phase kernels packed (4, Cout, 4*Cin)
+    # into this scratch.
+    wt = torch.empty(wk.numel(), device=x.device, dtype=x.dtype) if mainloop == "wgmma" else None
     out = torch.empty((b, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
     ptrs = [_ptr(t) for t in ops]
     rc = lib.acg_conv_transpose_norm_act(
-        x.data_ptr(), wk.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), *ptrs[2:],
-        _DTYPES[x.dtype], b, h, wd, cin, cout,
-        int(o.kind == "group"), g, float(o.eps), ACTIVATIONS.index(o.act), float(o.leak),
+        x.data_ptr(), wk.data_ptr(), _ptr(wt), ptrs[0], ptrs[1], out.data_ptr(), *ptrs[2:],
+        dt, b, h, wd, cin, cout, gn, g, float(o.eps), ACTIVATIONS.index(o.act), float(o.leak),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc:
-        raise RuntimeError(f"conv_transpose_norm_act kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"conv_transpose_norm_act kernel launch failed ({mainloop}): CUDA error {rc}")
     LAUNCHES["conv_transpose_norm_act"] += 1
+    LAUNCHES_BY_MAINLOOP[f"conv_transpose_norm_act:{mainloop}"] += 1
     return out, ops, g
 
 

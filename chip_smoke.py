@@ -9,15 +9,20 @@ Phases, each of which fails the run (non-zero exit, no final line):
 
 1. Print the card and its power limit; build every Hopper kernel from
    ``action_conditioned_gans_tpu_torch/csrc`` (one nvcc per source, in
-   parallel) and print what ``ptxas -v`` says of kernel 1's wgmma
-   mainloop (registers, spills: none allowed).
+   parallel) and print what ``ptxas -v`` says of the wgmma mainloop's
+   instances in kernels 1 and 2 and of kernel 2's narrow mainloop
+   (registers, spills: none allowed).
 2. Per-kernel parity of kernels 1-2 at the seven config1 generator layer
    shapes and the four config1 discriminator layer shapes (batch 8), at
-   every other shape of kernel 1 on the main paths (the config3 and config5
-   fused conv layers, batch 2), and at ragged shapes, five of them on the
-   edges of kernel 1's wgmma mainloop (Cin 12 and 20 with 8-byte copies, K
-   no multiple of 64, 25- and 144-row planes, Cout 192 in three 64-wide
-   tiles, the 64 x 256 tile); each line names the mainloop. float32 with
+   every other shape of kernels 1-2 on the main paths (the config3 and
+   config5 fused layers, batch 2), and at ragged shapes: five on the edges
+   of kernel 1's wgmma mainloop (Cin 12 and 20 with 8-byte copies, K no
+   multiple of 64, 25- and 144-row planes, Cout 192 in three 64-wide tiles,
+   the 64 x 256 tile), three on kernel 2's (a 5x6 plane with Cin 12 on
+   8-byte copies, K 48 in one partial stage, and Cout 192; the 64 x 256
+   tile on config3's dec_3 at B=32), two on its narrow mainloop (B=3 with
+   8-row bands over 10 rows and Cin 20 copied by channel; Cout 16 on a 7x9
+   plane); each line names the mainloop. float32 with
    TF32 off within 1e-3 abs + 1e-3 rel of the plain PyTorch version;
    bfloat16 within 3e-2 abs of the plain version
    run in float32 on the same bfloat16 inputs (a bfloat16 plain version
@@ -35,14 +40,15 @@ Phases, each of which fails the run (non-zero exit, no final line):
    Predictor.predict and Predictor.rollout, counts read and held to
    EXPECTED (launches per generator call, of them kernel 1 on its wgmma
    mainloop, and routes): config1 at B=128 and T=10, B=16 (4 / 3 / 0
-   launches of kernels 1 / 2 / 3, 3 of the 4 on wgmma, 7 fused layers);
-   config5 at 256x256, B=32 and T=30, B=8 (2 / 0 / 7 launches, 2 of 2 on
-   wgmma, 2 fused and 9 split layers). Outputs finite in [-1, 1]; both
+   launches of kernels 1 / 2 / 3; kernel 1 3 of 4 on wgmma, kernel 2 2 on
+   wgmma and dec_0 on its narrow mainloop; 7 fused layers); config5 at
+   256x256, B=32 and T=30, B=8 (2 / 0 / 7 launches, 2 of 2 on wgmma, 2
+   fused and 9 split layers). Outputs finite in [-1, 1]; both
    timed with CUDA events.
 5. The port's HTTP server answers /healthz, /predict and /rollout (float32
    and uint8) with exactly the direct calls' results (config1).
 6. Per-layer kernel, plain, library and bound times of the config1
-   generator layers at B=128 (the ``layer`` lines, which name kernel 1's
+   generator layers at B=128 (the ``layer`` lines, which name the
    mainloop; config1 discriminator conv_1..3 at B=128 too, outside the
    per-predict sums), and of kernel 3 at each
    config5 layer that runs it at B=32 (the ``n3_layer`` lines, with the
@@ -67,9 +73,10 @@ Phases, each of which fails the run (non-zero exit, no final line):
    (d_loss, g_loss, g_recon) trajectory within tests/test_golden.py's
    tolerances.
 10. Training in bfloat16, T=1: config1 at B=128 with bfloat16 Adam moments
-    (12 / 3 / 0 / 11 launches of kernels 1-4 per step, 9 of the 12 on
-    wgmma), then config3 at B=32 (128x128, d_extra_layers=1: 23 / 4 / 2 /
-    25, 20 of 23 on wgmma, kernel 3 under
+    (12 / 3 / 0 / 11 launches of kernels 1-4 per step, 9 of the 12 and 2
+    of the 3 on wgmma, dec_0 narrow), then config3 at B=32 (128x128,
+    d_extra_layers=1: 23 / 4 / 2 / 25, 20 of 23 and 3 of 4 on wgmma, kernel
+    3 under
     autograd in the D update and the G head, kernel 4 reading its bfloat16
     input as y). Each: 3 warm-up steps; counts set to 0, one step, counts
     read and every kernel call of it recorded; then 20 steps timed with CUDA
@@ -127,19 +134,27 @@ KERNEL_INFO = {
     ),
 }
 # Per main path: each kernel's launches per generator call (serving) or per
-# training step, how many of kernel 1's ran its wgmma mainloop (the others
-# WMMA: the first layers, Cin 3 and 10), and the (fused, split) routes its
-# conv blocks took, as the JAX package's envelope decides them
-# (tests/test_torch_envelope.py, tests/test_torch_conv_wgmma.py).
+# training step; kernels 1 and 2's launches by mainloop (kernel 1: wgmma,
+# and WMMA for the first layers, Cin 3 and 10; kernel 2: wgmma, and narrow
+# for dec_0); and the (fused, split) routes its conv blocks took, as the JAX
+# package's envelope decides them (tests/test_torch_envelope.py,
+# tests/test_torch_conv_wgmma.py, tests/test_torch_conv_transpose_wgmma.py).
 EXPECTED = {
     "config1 serving": (dict(conv_norm_act=4, conv_transpose_norm_act=3, group_norm_act=0,
-                             gn_act_bwd=0), 3, (7, 0)),
+                             gn_act_bwd=0),
+                        dict(conv_norm_act=dict(wgmma=3, wmma=1),
+                             conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (7, 0)),
     "config1 step": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
-                          gn_act_bwd=11), 9, (15, 0)),
+                          gn_act_bwd=11),
+                     dict(conv_norm_act=dict(wgmma=9, wmma=3),
+                          conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (15, 0)),
     "config5 serving": (dict(conv_norm_act=2, conv_transpose_norm_act=0, group_norm_act=7,
-                             gn_act_bwd=0), 2, (2, 9)),
+                             gn_act_bwd=0),
+                        dict(conv_norm_act=dict(wgmma=2)), (2, 9)),
     "config3 step": (dict(conv_norm_act=23, conv_transpose_norm_act=4, group_norm_act=2,
-                          gn_act_bwd=25), 20, (27, 2)),
+                          gn_act_bwd=25),
+                     dict(conv_norm_act=dict(wgmma=20, wmma=3),
+                          conv_transpose_norm_act=dict(wgmma=3, narrow=1)), (27, 2)),
 }
 # tests/test_golden.py's tolerances on (d_loss, g_loss, g_recon): (atol, rtol).
 GOLDEN_TOL = ((2e-4, 1e-3), (2e-3, 1e-3), (2e-4, 1e-3))
@@ -316,11 +331,16 @@ def work(block, shape, itemsize):
 def edge_layers():
     """Shapes off the main path that stress masking: odd and non-square
     planes, channel counts that are no multiple of 8, groups of 2-4
-    channels, narrow bfloat16 tiles with GroupNorm; and the edges of kernel
-    1's wgmma mainloop (tests/test_torch_conv_wgmma.py): 8-byte copies (Cin
-    12, 20), K no multiple of 64 (108, 180), planes of 25 and 144 rows (BM
-    64, 128 with a partial second tile), Cout 192 as three 64-wide tiles,
-    the 64 x 256 tile (128 blocks) on a 25-row plane."""
+    channels, narrow bfloat16 tiles with GroupNorm; the edges of kernel 1's
+    wgmma mainloop (tests/test_torch_conv_wgmma.py): 8-byte copies (Cin 12,
+    20), K no multiple of 64 (108, 180), planes of 25 and 144 rows (BM 64,
+    128 with a partial second tile), Cout 192 as three 64-wide tiles, the
+    64 x 256 tile (128 blocks) on a 25-row plane; and kernel 2's
+    (tests/test_torch_conv_transpose_wgmma.py): wgmma on a 5x6 plane with Cin
+    12 on 8-byte copies (K 48: one partial stage) and Cout 192, the 64 x 256
+    tile on config3's dec_3 at B=32 (128 blocks); the narrow mainloop at B=3
+    with 8-row bands over 10 rows (Cin 20: copied by channel, padded to 32),
+    and with Cout 16 (two 8-wide n-tiles) on a 7x9 plane."""
     from action_conditioned_gans_tpu_torch.models.common import ConvBlock
 
     return [
@@ -335,13 +355,19 @@ def edge_layers():
          (3, 9, 9, 16)),
         ("edge_wg_bn64", ConvBlock(16, 192, kernel=4, stride=2), (2, 24, 24, 16)),
         ("edge_wg_bn256", ConvBlock(12, 256, kernel=3, stride=1), (128, 5, 5, 12)),
+        ("edge_tw_odd", ConvBlock(12, 192, transpose=True), (3, 5, 6, 12)),
+        ("edge_tw_bn256", ConvBlock(512, 256, transpose=True), (32, 8, 8, 512)),
+        ("edge_tn_band", ConvBlock(20, 3, transpose=True, norm="none", act="tanh"),
+         (3, 10, 16, 20)),
+        ("edge_tn_c16", ConvBlock(16, 16, transpose=True, norm="none", act="lrelu"),
+         (2, 7, 9, 16)),
     ]
 
 
 def preset_conv_layers(preset, batch=2):
-    """Kernel 1's distinct layers (fused, not transposed) of ``preset``'s G
-    and D in bfloat16, as (name, ConvBlock, input shape): the models run on
-    the meta device, routed as on the card."""
+    """Kernels 1 and 2's distinct fused layers of ``preset``'s G and D in
+    bfloat16, as (name, ConvBlock, input shape): the models run on the meta
+    device, routed as on the card."""
     from action_conditioned_gans_tpu_torch.config import get_preset
     from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
     from action_conditioned_gans_tpu_torch.ops import envelope
@@ -357,10 +383,11 @@ def preset_conv_layers(preset, batch=2):
             seen += capture_layers(disc, lambda: disc(frame, frame, action), prefix=f"{preset}.D.")
     layers, keys = [], set()
     for name, block, shape in seen:
-        key = (shape[1:], tuple(block.kernel.shape), block.stride, block.norm, block.act)
-        if block.transpose or key in keys or envelope.route(
-                shape, tuple(block.kernel.shape), block.stride, False, block.norm, block.groups,
-                torch.bfloat16) != "fused":
+        key = (shape[1:], tuple(block.kernel.shape), block.stride, block.transpose, block.norm,
+               block.act)
+        if key in keys or envelope.route(
+                shape, tuple(block.kernel.shape), block.stride, block.transpose, block.norm,
+                block.groups, torch.bfloat16) != "fused":
             continue
         keys.add(key)
         layers.append((name, block, shape))
@@ -368,12 +395,13 @@ def preset_conv_layers(preset, batch=2):
 
 
 def mainloop_of(fn):
-    """Runs ``fn`` and returns the kernel-1 mainloop(s) it launched."""
+    """Runs ``fn`` and returns the kernel-1 / kernel-2 mainloop(s) it
+    launched."""
     from action_conditioned_gans_tpu_torch.ops.kernels import conv
 
     before = dict(conv.LAUNCHES_BY_MAINLOOP)
     out = fn()
-    ran = [k for k, v in conv.LAUNCHES_BY_MAINLOOP.items() if v > before[k]]
+    ran = [k.split(":")[1] for k, v in conv.LAUNCHES_BY_MAINLOOP.items() if v > before[k]]
     return out, "+".join(ran) or "-"
 
 
@@ -489,24 +517,24 @@ def reset_launches():
 def read_launches():
     from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
 
-    by_mainloop = {f"conv_norm_act:{k}": v for k, v in conv.LAUNCHES_BY_MAINLOOP.items()}
-    return {**conv.LAUNCHES, **norm_act.LAUNCHES, **gn_bwd.LAUNCHES, **by_mainloop}
+    return {**conv.LAUNCHES, **norm_act.LAUNCHES, **gn_bwd.LAUNCHES, **conv.LAUNCHES_BY_MAINLOOP}
 
 
 def check_counts(path, launches, times):
     """The launch and route counts of ``times`` generator calls or training
     steps on ``path`` against EXPECTED."""
     from action_conditioned_gans_tpu_torch.ops import api
+    from action_conditioned_gans_tpu_torch.ops.kernels import conv
 
-    per, wgmma, (fused, split) = EXPECTED[path]
+    per, by_mainloop, (fused, split) = EXPECTED[path]
     say(f"main path {path}: launches {launches}, routes {api.ROUTES} over {times} "
         f"{'steps' if 'step' in path else 'generator calls'}")
     for name in KERNEL_INFO:
         want = per[name] * times
         check(launches[name] == want, f"{path}: {name} launched {launches[name]} times, want {want}")
-    by = {k: launches[f"conv_norm_act:{k}"] for k in ("wgmma", "wmma", "fma")}
-    want = dict(wgmma=wgmma * times, wmma=(per["conv_norm_act"] - wgmma) * times, fma=0)
-    check(by == want, f"{path}: kernel 1 by mainloop {by}, want {want}")
+    by = {k: launches[k] for k in conv.LAUNCHES_BY_MAINLOOP}
+    want = {k: by_mainloop.get(k.split(":")[0], {}).get(k.split(":")[1], 0) * times for k in by}
+    check(by == want, f"{path}: kernels 1-2 by mainloop {by}, want {want}")
     want = {"fused": fused * times, "split": split * times}
     check(api.ROUTES == want, f"{path}: routes {api.ROUTES}, want {want}")
 
@@ -886,6 +914,7 @@ def phase_train_conv_parity(conv_calls, worst):
 # kernels' epilogue and kernel 3.
 OWN_KERNELS = {"conv_wgmma_kernel": "conv fwd GEMM", "conv_wmma_kernel": "conv fwd GEMM",
                "conv_fma_kernel": "conv fwd GEMM", "pack_weights_kernel": "conv weight packing",
+               "narrow_transpose_kernel": "conv-transpose narrow (whole layer)",
                "gn_partials_kernel": "group_norm_act partial sums",
                "gn_stats_kernel": "GroupNorm stats (conv epilogue, group_norm_act)",
                "gn_apply_kernel": "GroupNorm apply (conv epilogue, group_norm_act)",
@@ -1210,11 +1239,14 @@ def main() -> int:
     paths = build.build_all()
     build_s = time.perf_counter() - t0
     say(f"built {sorted(paths)} for sm_90a in {build_s:.1f} s -> {build.BUILD_DIR}")
-    wgmma = {k: v for k, v in build.ptxas_report("conv_norm_act").items() if "conv_wgmma_kernel" in k}
-    check(len(wgmma) == 10, f"ptxas reported {len(wgmma)} conv_wgmma_kernel instances, want 10")
-    for k, v in sorted(wgmma.items()):
-        say(f"ptxas conv_wgmma_kernel<BM, BN, AV>={k.split('kernel', 1)[1][:22]}: {v}")
-        check(v["spill_stores"] == 0 and v["spill_loads"] == 0, f"conv_wgmma_kernel spills: {k} {v}")
+    for lib, kernel, want in (("conv_norm_act", "conv_wgmma_kernel", 10),
+                              ("conv_transpose_norm_act", "conv_wgmma_kernel", 10),
+                              ("conv_transpose_norm_act", "narrow_transpose_kernel", 4)):
+        found = {k: v for k, v in build.ptxas_report(lib).items() if kernel in k}
+        check(len(found) == want, f"ptxas reported {len(found)} {kernel} instances in {lib}, want {want}")
+        for k, v in sorted(found.items()):
+            say(f"ptxas {lib} {kernel}<...>={k.split('kernel', 1)[1][:26]}: {v}")
+            check(v["spill_stores"] == 0 and v["spill_loads"] == 0, f"{kernel} spills: {k} {v}")
 
     predictor = preset_predictor("config1")
     rng = np.random.default_rng(2)
@@ -1226,8 +1258,8 @@ def main() -> int:
     check(len(d_layers) == 4, f"expected 4 discriminator layers, saw {len(d_layers)}")
     worst = phase_parity(layers + d_layers)
     for preset in ("config3", "config5"):
-        more = phase_parity(preset_conv_layers(preset), batch=2)
-        worst["conv_norm_act"] = max(worst["conv_norm_act"], more["conv_norm_act"])
+        for name, err in phase_parity(preset_conv_layers(preset), batch=2).items():
+            worst[name] = max(worst[name], err)
     phase_parity(edge_layers(), batch=None)
     worst_norm = phase_norm_parity()
     phase_fixture()
