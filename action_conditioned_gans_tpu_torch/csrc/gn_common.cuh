@@ -1,10 +1,11 @@
-// GroupNorm passes shared by the fused conv kernels (conv_common.cuh) and the
-// standalone GroupNorm + activation kernel (group_norm_act.cu), and the
-// element helpers every kernel here uses.
+// The GroupNorm passes of the fused conv kernels' epilogue (conv_common.cuh),
+// and the element helpers every kernel here uses. (The standalone GroupNorm +
+// activation kernel, group_norm_act.cu, is one cluster launch of its own:
+// gn_cluster.cuh.)
 //
-// A sample's plane is more than one block's shared memory holds, so the
+// A conv's output plane is more than one block's shared memory holds, so the
 // statistics come from per-tile, per-channel partial sums S1 = sum x and
-// S2 = sum x^2 that the caller's first pass wrote, laid out
+// S2 = sum x^2 that the conv kernel's epilogue wrote, laid out
 // (B, slots, C) in float32. Then:
 //   gn_stats_kernel  one block per sample reduces the slots in a fixed order
 //                    into per-group mean and rstd (E[x^2] - mean^2, clamped
@@ -77,8 +78,7 @@ __global__ void __launch_bounds__(NT) gn_stats_kernel(
 constexpr int APPLY_CHUNK = 4096;  // elements per apply block
 
 // Grid: (ceil(pixels*C / APPLY_CHUNK), B). Block: NT threads. y is the
-// pre-norm input: the conv kernels' float32 scratch, or the standalone
-// kernel's x in the compute dtype.
+// pre-norm input, the conv kernels' float32 scratch.
 template <typename TY, typename T>
 __global__ void __launch_bounds__(NT) gn_apply_kernel(
     const TY* __restrict__ y, const float* __restrict__ stats,

@@ -141,10 +141,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.acg_gn_act_bwd.restype = _I
         return
     if name == "group_norm_act":
-        lib.acg_gn_tiles.argtypes = [_I]  # HW
-        lib.acg_gn_tiles.restype = _I
+        lib.acg_gn_plan.argtypes = [_I] * 5 + [_P]  # bf16, B, HW, C, groups, out (6 ints)
+        lib.acg_gn_plan.restype = _I
+        lib.acg_gn_max_active_clusters.argtypes = [_I] * 6  # bf16, B, HW, C, groups, cluster
+        lib.acg_gn_max_active_clusters.restype = _I
         lib.acg_group_norm_act.argtypes = (
-            [_P] * 7  # x, scale, bias, out, psum, psq, stats
+            [_P] * 5  # x, scale, bias, out, stats
             + [_I] * 5  # bf16, B, HW, C, groups
             + [_F, _I, _F, _P]  # eps, act, leak, stream
         )

@@ -6,6 +6,13 @@ GroupNorm (float32 statistics, ``E[x^2] - mean^2`` clamped at 0) -> affine
 runs it after the plain conv of every layer that the reference's envelope
 splits (``ops/envelope.py``).
 
+The kernel is one launch with one thread-block cluster per sample: each block
+copies its share of the sample's rows into shared memory, the blocks reduce
+their per-group sums through distributed shared memory, and each normalises
+its share where it lies. :func:`gn_plan` is the Python copy of the C plan
+(``acg_gn_plan``, ``csrc/gn_cluster.cuh``): cluster size, rows per block,
+rows kept in shared memory and bytes read twice.
+
 For a CUDA tensor :func:`group_norm_act` launches the kernel or raises; for
 a CPU tensor it computes the plain version, :func:`group_norm_act_plain`,
 which is ``reference.norm_act(kind="group")``: the XLA composite the JAX
@@ -25,8 +32,9 @@ JAX VJP does.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,6 +48,75 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def reset_launches() -> None:
     LAUNCHES["group_norm_act"] = 0
+
+
+# csrc/gn_cluster.cuh: threads per block, a block's dynamic shared memory on
+# sm_90, the largest portable cluster, the blocks the plan aims for, the
+# H100's SMs, the most shared memory at which two blocks share an SM.
+NT, SMEM_MAX, PORTABLE_CLUSTER, FILL_BLOCKS, SMS, TWO_PER_SM = 256, 232448, 8, 256, 132, 115200
+
+
+class GnPlan(NamedTuple):
+    cluster: int  # blocks per sample: one thread-block cluster
+    rows_max: int  # rows of the largest share, ceil(HW / cluster)
+    keep_rows: int  # rows of its share a block keeps in shared memory
+    vec: int  # channels per unit: 16 bytes' worth, or 1 when C is no multiple of that
+    smem: int  # dynamic shared memory per block, bytes (< 0: no plan fits)
+    reread: int  # bytes of one sample read twice (rows past keep_rows)
+
+
+def share_rows(hw: int, cluster: int, rank: int) -> range:
+    """The rows of the sample that block ``rank`` of the cluster holds."""
+    return range(rank * hw // cluster, (rank + 1) * hw // cluster)
+
+
+def unit_slots(vec: int, cg: int) -> int:
+    """Per-group slots a thread folds its unit's ``vec`` channels into
+    (``gnc::unit_slots``): each slot lies in one group of ``cg`` channels."""
+    return 1 if cg % vec == 0 else (vec // cg if vec % cg == 0 else vec)
+
+
+def _plan_for(esize: int, hw: int, c: int, groups: int, cluster: int) -> GnPlan:
+    vec = 16 // esize if c % (16 // esize) == 0 else 1
+    rows_max = -(-hw // cluster)
+    # lane partials (S1, S2), group partials, the mbarrier
+    scratch = 4 * (2 * NT * unit_slots(vec, c // groups) + 4 * groups) + 16
+    room = SMEM_MAX - scratch
+    keep = min(max(room, 0) // (c * esize), rows_max)
+    smem = -1 if room < 0 else -(-keep * c * esize // 16) * 16 + scratch
+    reread = sum(max(len(share_rows(hw, cluster, q)) - keep, 0) * c * esize
+                 for q in range(cluster))
+    return GnPlan(cluster, rows_max, keep, vec, smem, reread)
+
+
+def gn_plan(dtype: torch.dtype, b: int, hw: int, c: int, groups: int) -> GnPlan:
+    """The kernel's plan for x (b, hw, c) in ``dtype`` with ``groups`` (resolved)
+    groups: a copy of ``gnc::make_plan``. The cluster doubles from 1 while it
+    may (at most PORTABLE_CLUSTER blocks, each with a row) and either the grid
+    has fewer than FILL_BLOCKS blocks or a share overflows a block. A cluster
+    of 8 whose blocks each need an SM of their own (more shared memory than
+    TWO_PER_SM) and that the card cannot hold at once for all b samples
+    doubles once more, to 16."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    k = 1
+    while 2 * k <= PORTABLE_CLUSTER and 2 * k <= hw:
+        p = _plan_for(esize, hw, c, groups, k)
+        if b * k >= FILL_BLOCKS and p.keep_rows == p.rows_max:
+            break
+        k *= 2
+    p = _plan_for(esize, hw, c, groups, k)
+    if k == PORTABLE_CLUSTER and 2 * k <= hw and p.smem > TWO_PER_SM and b * k > SMS:
+        return _plan_for(esize, hw, c, groups, 2 * k)
+    return p
+
+
+def kernel_plan(dtype: torch.dtype, b: int, hw: int, c: int, groups: int) -> GnPlan:
+    """The plan as the kernel's library computes it (``acg_gn_plan``; on the card)."""
+    out = (ctypes.c_int * 6)()
+    rc = build.load("group_norm_act").acg_gn_plan(_DTYPES[dtype], b, hw, c, groups, out)
+    if rc:
+        raise RuntimeError(f"group_norm_act: no plan fits x({b}, {hw}, {c}): CUDA error {rc}")
+    return GnPlan(*out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,14 +149,14 @@ def _launch(x, scale, bias, o: _Opts):
     dev = x.device
     scale_f = (scale if scale is not None else torch.ones(c, device=dev)).float().contiguous()
     bias_f = (bias if bias is not None else torch.zeros(c, device=dev)).float().contiguous()
+    if x.data_ptr() % 16:  # the kernel copies 16-byte units
+        x = x.clone()
     lib = build.load("group_norm_act")
-    psum = torch.empty(b * lib.acg_gn_tiles(h * w) * c, device=dev, dtype=torch.float32)
-    psq = torch.empty_like(psum)
     stats = torch.empty((2, b, g), device=dev, dtype=torch.float32)
     out = torch.empty_like(x)
     rc = lib.acg_group_norm_act(
-        x.data_ptr(), scale_f.data_ptr(), bias_f.data_ptr(), out.data_ptr(), psum.data_ptr(),
-        psq.data_ptr(), stats.data_ptr(), _DTYPES[x.dtype], b, h * w, c, g, float(o.eps),
+        x.data_ptr(), scale_f.data_ptr(), bias_f.data_ptr(), out.data_ptr(), stats.data_ptr(),
+        _DTYPES[x.dtype], b, h * w, c, g, float(o.eps),
         ACTIVATIONS.index(o.act), float(o.leak), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc:

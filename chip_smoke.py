@@ -10,8 +10,8 @@ Phases, each of which fails the run (non-zero exit, no final line):
 1. Print the card and its power limit; build every Hopper kernel from
    ``action_conditioned_gans_tpu_torch/csrc`` (one nvcc per source, in
    parallel) and print what ``ptxas -v`` says of the wgmma mainloop's
-   instances in kernels 1 and 2 and of kernel 2's narrow mainloop
-   (registers, spills: none allowed).
+   instances in kernels 1 and 2, of kernel 2's narrow mainloop and of
+   kernel 3's cluster kernel (registers, spills: none allowed).
 2. Per-kernel parity of kernels 1-2 at the seven config1 generator layer
    shapes and the four config1 discriminator layer shapes (batch 8), at
    every other shape of kernels 1-2 on the main paths (the config3 and
@@ -27,11 +27,17 @@ Phases, each of which fails the run (non-zero exit, no final line):
    bfloat16 within 3e-2 abs of the plain version
    run in float32 on the same bfloat16 inputs (a bfloat16 plain version
    rounds its pre-norm conv output, which moves outputs near 4 by one
-   bfloat16 step, 0.031). Kernel 3 against its plain version at its seven
-   config5 generator shapes (B=2), config3 D conv_4 (B=8) and ragged shapes
-   (C 40, 96, 520, groups lowered, odd planes), every activation: float32
-   within 1e-4 abs + 1e-4 rel, bfloat16 within 3e-2 as above, and its
-   (mean, rstd) against float64 statistics.
+   bfloat16 step, 0.031). Kernel 3 (one launch, one thread-block cluster
+   per sample, csrc/group_norm_act.cu) against its plain version at its
+   seven config5 generator shapes (B=2), config3 D conv_4 (B=8) and ragged
+   shapes (C 40, 96, 520 and 36, groups lowered, odd planes, B=1, a plane of
+   9 rows over a cluster of 8, more channels than a block's threads hold in
+   one pass, a cluster of 2, and config5 dec_1 in float32, whose shares
+   spill past shared memory), every activation: float32 within 1e-4 abs +
+   1e-4 rel, bfloat16 within 3e-2 as above, its (mean, rstd) against
+   float64 statistics, and a second launch on the same input bit-identical.
+   The plan (``acg_gn_plan``) of every kernel-3 call of the whole run is
+   held against its Python copy (``norm_act.gn_plan``) at the end.
 3. The committed JAX fixture (tests/fixtures/torch_port_tiny_generator.npz)
    reproduced on cuda in float32 within 1e-3, and the full-width config1
    and config5 (B=1) generators on cuda against the same weights on the
@@ -53,9 +59,11 @@ Phases, each of which fails the run (non-zero exit, no final line):
    per-predict sums), and of kernel 3 at each
    config5 layer that runs it at B=32 (the ``n3_layer`` lines, with the
    whole layer as the port splits it, as the fused conv kernel would run
-   it, and as cuDNN + F.group_norm run it). Kernel-level times are device
-   times: 20 calls captured in a CUDA graph and replayed
-   (``device_time_ms``).
+   it, and as cuDNN + F.group_norm run it; each line gives kernel 3's plan,
+   its registers and how many of its clusters the card holds at once, at
+   the plan's size and at 16 blocks), then the same at the rollout's B=8.
+   Kernel-level times are device times: 20 calls captured in a CUDA graph
+   and replayed (``device_time_ms``).
 7. The GroupNorm+activation backward kernel (kernel 4) against its plain
    version (``reference.gn_act_grads``) at every config1 GroupNorm shape
    (B=8) and at ragged shapes, for lrelu / relu / tanh / none: float32
@@ -909,15 +917,15 @@ def phase_train_conv_parity(conv_calls, worst):
     say(f"train parity: {len(distinct)} distinct conv calls of the training step within 3e-2")
 
 
-# Kernel-name fragments of the port's own kernels (csrc/).
-# The GroupNorm stats and apply passes (gn_common.cuh) serve both the conv
-# kernels' epilogue and kernel 3.
+# Kernel-name fragments of the port's own kernels (csrc/). The GroupNorm
+# stats and apply passes (gn_common.cuh) are the conv kernels' epilogue;
+# kernel 3 is one cluster launch of its own.
 OWN_KERNELS = {"conv_wgmma_kernel": "conv fwd GEMM", "conv_wmma_kernel": "conv fwd GEMM",
                "conv_fma_kernel": "conv fwd GEMM", "pack_weights_kernel": "conv weight packing",
                "narrow_transpose_kernel": "conv-transpose narrow (whole layer)",
-               "gn_partials_kernel": "group_norm_act partial sums",
-               "gn_stats_kernel": "GroupNorm stats (conv epilogue, group_norm_act)",
-               "gn_apply_kernel": "GroupNorm apply (conv epilogue, group_norm_act)",
+               "gn_cluster_kernel": "group_norm_act (one cluster launch)",
+               "gn_stats_kernel": "GroupNorm stats (conv epilogue)",
+               "gn_apply_kernel": "GroupNorm apply (conv epilogue)",
                "gn_bwd_": "gn_act_bwd"}
 
 
@@ -1031,6 +1039,12 @@ NORM_SHAPES = [
     # ragged: 40 -> 20 groups, 96 -> 16 groups of 6, 520 -> 26 groups; odd planes
     ("edge_c40", (3, 7, 5, 40), 32), ("edge_c96", (2, 9, 9, 96), 20),
     ("edge_c520", (2, 5, 7, 520), 32),
+    # 36 channels: no multiple of 8, one-channel units in bfloat16; one sample;
+    # 9 rows over a cluster of 8; 2560 channels: more units than threads; 3
+    # rows: a cluster of 2; config5 dec_1, whose float32 shares spill.
+    ("edge_c36", (3, 7, 5, 36), 32), ("edge_b1", (1, 16, 16, 512), 32),
+    ("edge_hw9", (4, 3, 3, 64), 32), ("edge_c2560", (2, 3, 3, 2560), 32),
+    ("edge_hw3", (5, 3, 1, 64), 32), ("edge_dec1_spill", (2, 128, 128, 64), 32),
 ]
 
 
@@ -1062,9 +1076,12 @@ def phase_norm_parity():
                     x, s, b = norm_inputs(shape, dtype, seed=700 + i)
                     kw = dict(groups=groups, act=act, leak=0.2)
                     got, stats = norm_act.group_norm_act_with_stats(x, s, b, **kw)
+                    again, stats_again = norm_act.group_norm_act_with_stats(x, s, b, **kw)
                     want = norm_act.group_norm_act_plain(x.float(), s, b, **kw)
                     torch.cuda.synchronize()
                     tag = f"{label} {shape} groups {gr} {act} {str(dtype)[6:]}"
+                    check(torch.equal(got, again) and torch.equal(stats, stats_again),
+                          f"group_norm_act: two launches differ at {tag}")
                     check(got.dtype == dtype and tuple(got.shape) == shape, f"group_norm_act {tag}")
                     bar = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 0.0)
                     err, ok = within(got, want, *bar)
@@ -1079,7 +1096,8 @@ def phase_norm_parity():
                     worst_stats = max(worst_stats, e_st)
     say(f"group_norm_act parity ({len(NORM_SHAPES)} shapes x {len(ACTS)} activations): f32 "
         f"max|d|={worst[torch.float32]:.3e} (bar 1e-4 + 1e-4 rel), bf16 "
-        f"max|d|={worst[torch.bfloat16]:.3e} (bar 3e-2), (mean, rstd) max|d|={worst_stats:.3e}")
+        f"max|d|={worst[torch.bfloat16]:.3e} (bar 3e-2), (mean, rstd) max|d|={worst_stats:.3e}, "
+        "two launches bit-identical")
     return worst[torch.bfloat16]
 
 
@@ -1148,11 +1166,64 @@ def library_norm_act(x, scale, bias, groups, act):
     return lambda: acts[act](F.group_norm(xn, groups, s, b))
 
 
+def record_kernel3_calls():
+    """Wraps kernel 3's launch so that every call of the run leaves its
+    (dtype, B, HW, C, groups) in the returned set."""
+    from action_conditioned_gans_tpu_torch.ops.common import resolve_groups
+    from action_conditioned_gans_tpu_torch.ops.kernels import norm_act
+
+    seen, launch = set(), norm_act._launch
+
+    def recording(x, scale, bias, o):
+        b, h, w, c = x.shape
+        seen.add((str(x.dtype)[6:], b, h * w, c, resolve_groups(c, o.groups)))
+        return launch(x, scale, bias, o)
+
+    norm_act._launch = recording
+    return seen
+
+
+def check_plans(seen):
+    """The kernel's plan (acg_gn_plan) against its Python copy at every
+    kernel-3 call of the run."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import norm_act
+
+    for dtype, b, hw, c, g in sorted(seen):
+        args = (getattr(torch, dtype), b, hw, c, g)
+        lib, py = norm_act.kernel_plan(*args), norm_act.gn_plan(*args)
+        check(lib == py, f"group_norm_act plan at {dtype} ({b}, {hw}, {c}) groups {g}: "
+                         f"acg_gn_plan {lib}, Python copy {py}")
+    say(f"group_norm_act plan: acg_gn_plan equals its Python copy at all {len(seen)} "
+        "(dtype, B, HW, C, groups) of the run's kernel-3 calls")
+
+
+def kernel3_resources(shape, dtype, groups, act):
+    """Kernel 3's plan for x ``shape``, the registers of the instance the
+    call runs, and how many of its clusters the card holds at once, at the
+    plan's cluster size and at 16 blocks (non-portable)."""
+    from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, resolve_groups
+    from action_conditioned_gans_tpu_torch.ops.kernels import build, norm_act
+
+    b, h, w, c = shape
+    gr = resolve_groups(c, groups)
+    plan = norm_act.kernel_plan(dtype, b, h * w, c, gr)
+    bf16 = int(dtype == torch.bfloat16)
+    instance = (f"gn_cluster_kernelI{'13__nv_bfloat16' if bf16 else 'f'}Li{plan.vec}E"
+                f"Li{ACTIVATIONS.index(act)}E")
+    regs = [v["registers"] for k, v in build.ptxas_report("group_norm_act").items() if instance in k]
+    check(len(regs) == 1, f"ptxas reported {len(regs)} instances {instance}")
+    lib = build.load("group_norm_act")
+    return dict(plan=plan._asdict(), registers=regs[0],
+                resident_clusters=lib.acg_gn_max_active_clusters(bf16, b, h * w, c, gr, 0),
+                resident_clusters_at_16=lib.acg_gn_max_active_clusters(bf16, b, h * w, c, gr, 16))
+
+
 def phase_norm_times(layers, worst_bf16, batch=32):
-    """Kernel 3 at each config5 generator layer that runs it, at the predict
-    batch: its device time, the plain version's and the library's, the byte
-    bound; and the whole layer as the port runs it (cuDNN conv + kernel 3),
-    as the fused conv kernel runs it, and as cuDNN + F.group_norm run it."""
+    """Kernel 3 at each config5 generator layer that runs it, at ``batch``:
+    its device time, the plain version's and the library's, the byte bound,
+    its plan and resources; and the whole layer as the port runs it (cuDNN
+    conv + kernel 3), as the fused conv kernel runs it, and as cuDNN +
+    F.group_norm run it."""
     from action_conditioned_gans_tpu_torch.ops import api, envelope
     from action_conditioned_gans_tpu_torch.ops.common import resolve_groups
     from action_conditioned_gans_tpu_torch.ops.kernels import norm_act
@@ -1192,7 +1263,8 @@ def phase_norm_times(layers, worst_bf16, batch=32):
                        bound_ms=max(ops_ms, bytes_ms),
                        bound_by="operations" if ops_ms >= bytes_ms else "bytes", max_abs_err=err,
                        split_layer_ms=split_layer_ms, fused_kernel_layer_ms=fused_layer_ms,
-                       library_layer_ms=library_layer_ms)
+                       library_layer_ms=library_layer_ms,
+                       **kernel3_resources(tuple(y.shape), y.dtype, block.groups, block.act))
             say("n3_layer " + json.dumps(row))
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 tot[key] += row[key]
@@ -1241,13 +1313,15 @@ def main() -> int:
     say(f"built {sorted(paths)} for sm_90a in {build_s:.1f} s -> {build.BUILD_DIR}")
     for lib, kernel, want in (("conv_norm_act", "conv_wgmma_kernel", 10),
                               ("conv_transpose_norm_act", "conv_wgmma_kernel", 10),
-                              ("conv_transpose_norm_act", "narrow_transpose_kernel", 4)):
+                              ("conv_transpose_norm_act", "narrow_transpose_kernel", 4),
+                              ("group_norm_act", "gn_cluster_kernel", 16)):
         found = {k: v for k, v in build.ptxas_report(lib).items() if kernel in k}
         check(len(found) == want, f"ptxas reported {len(found)} {kernel} instances in {lib}, want {want}")
         for k, v in sorted(found.items()):
             say(f"ptxas {lib} {kernel}<...>={k.split('kernel', 1)[1][:26]}: {v}")
             check(v["spill_stores"] == 0 and v["spill_loads"] == 0, f"{kernel} spills: {k} {v}")
 
+    kernel3_calls = record_kernel3_calls()
     predictor = preset_predictor("config1")
     rng = np.random.default_rng(2)
     frame = np.tanh(rng.standard_normal((8, 64, 64, 3))).astype(np.float32)
@@ -1275,6 +1349,7 @@ def main() -> int:
     check(len(c5_layers) == 11, f"expected 11 config5 generator layers, saw {len(c5_layers)}")
     launches["config5 serving"] = phase_serving(predictor, "config5 serving", 32, 30, 8, timed=8)
     totals["group_norm_act"] = phase_norm_times(c5_layers, worst_norm)
+    phase_norm_times(c5_layers, worst_norm, batch=8)  # the rollout's batch
     del predictor
 
     phase_gn_bwd_parity()
@@ -1292,6 +1367,7 @@ def main() -> int:
                                                                          "config3 step")
     phase_train_conv_parity(conv_calls, totals)
     phase_train_norm_parity(norm_calls, totals["group_norm_act"])
+    check_plans(kernel3_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 
     kernels = []

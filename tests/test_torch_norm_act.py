@@ -5,9 +5,12 @@ and the split route of ``ops/api.py`` against the JAX package, on the CPU.
   mode, as tests/test_pallas.py runs it: float32 within 1e-4; bfloat16
   within 1e-2 abs + 1e-2 rel (one bfloat16 step of |out| <= 2, and the
   kernel activates before its cast where the plain version casts first);
-* ``csrc/group_norm_act.cu``'s pass decomposition, emulated in torch (the
-  CUDA kernel cannot run here), against the plain version, and its (mean,
-  rstd) against float64 statistics;
+* ``csrc/group_norm_act.cu``'s one-launch cluster design, emulated in torch
+  under its plan (the CUDA kernel cannot run here), against the plain
+  version, and its (mean, rstd) against float64 statistics;
+* the plan (``ops/kernels/norm_act.py:gn_plan``, the copy of the kernel's
+  ``acg_gn_plan``) pinned at every preset layer that runs kernel 3 and at
+  the edges;
 * :class:`GroupNormActFn` against ``jax.vjp`` of the Pallas op: 1e-3;
 * the backward's CPU path with a bfloat16 ``y`` against ``ops/gn.py``'s
   ``gn_act_grads`` on the same bfloat16 input;
@@ -36,7 +39,7 @@ from action_conditioned_gans_tpu.ops import pallas as P
 from action_conditioned_gans_tpu_torch import config as tcfg
 from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict
 from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
-from action_conditioned_gans_tpu_torch.ops import api, common
+from action_conditioned_gans_tpu_torch.ops import api, common, envelope
 from action_conditioned_gans_tpu_torch.ops.kernels import gn_bwd
 from action_conditioned_gans_tpu_torch.ops.kernels import norm_act as NA
 
@@ -86,46 +89,252 @@ def test_plain_version_matches_jax_pallas_kernel(act, c, groups, dtype):
                                **(F32_TOL if dtype == "float32" else BF16_TOL))
 
 
-TILE_ROWS = 256  # csrc/group_norm_act.cu
-
-
-def emulate_group_norm_act_kernel(x, scale, bias, groups, eps, act, leak):
-    """csrc/group_norm_act.cu pass by pass, in torch: per-tile channel sums
-    S1 = sum x and S2 = sum x^2 (float32), the tiles reduced in order, the
-    group statistics E[x^2] - mean^2 clamped at 0, then normalise, affine
-    and activation in float32 and a cast. Returns (out, stats (2, B, G))."""
+def emulate_group_norm_act_kernel(x, scale, bias, groups, eps, act, leak, plan_dtype, plan=None):
+    """csrc/group_norm_act.cu step by step in torch, float32, with the plan
+    the kernel takes for ``plan_dtype`` (``NA.gn_plan``; or ``plan``): each block of a
+    sample's cluster holds its share of rows; per chunk of channel units,
+    each lane sums S1 = sum x and S2 = sum x^2 over its rows (the rows past
+    the kept ones first, as the kernel reads them) and folds its unit's
+    channels into per-group slots; lanes, then a group's slots, fold into
+    the block's per-group partials; the blocks' partials
+    add in rank order; E[x^2] - mean^2 clamped at 0; then every lane
+    normalises, applies the affine and the activation to its rows and casts.
+    Every row is checked to fall in exactly one lane. Returns (out, stats
+    (2, B, G))."""
     b, h, w, c = x.shape
     hw, cg = h * w, c // groups
+    p = plan or NA.gn_plan(plan_dtype, b, hw, c, groups)
     x3 = x.reshape(b, hw, c).float()
-    tiles = -(-hw // TILE_ROWS)
-    s1 = torch.stack([x3[:, i * TILE_ROWS:(i + 1) * TILE_ROWS].sum(1) for i in range(tiles)], 1)
-    s2 = torch.stack([(x3 * x3)[:, i * TILE_ROWS:(i + 1) * TILE_ROWS].sum(1)
-                      for i in range(tiles)], 1)
-    ch_s, ch_q = s1.sum(1), s2.sum(1)  # (B, C)
+    units = c // p.vec
+    chunks = [(u0 * p.vec, min(NA.NT, units - u0) * p.vec, NA.NT // min(NA.NT, units - u0))
+              for u0 in range(0, units, NA.NT)]  # (first channel, channels, lanes)
+    shares = [NA.share_rows(hw, p.cluster, q) for q in range(p.cluster)]
+    assert [r for rows in shares for r in rows] == list(range(hw))
+
+    def lane_rows(rows, lanes):
+        keep = min(len(rows), p.keep_rows)
+        out = [[*rows[keep + l::lanes], *rows[l:keep:lanes]] for l in range(lanes)]
+        assert sorted(r for lr in out for r in lr) == list(rows)
+        return out
+
+    slot = p.vec // NA.unit_slots(p.vec, cg)  # channels a thread folds into one slot
+    parts = []
+    for rows in shares:
+        part = torch.zeros(2, b, groups)
+        for ch0, width, lanes in chunks:
+            xs = x3[:, :, ch0:ch0 + width]
+            red = torch.stack([torch.stack([xs[:, lr].sum(1), (xs[:, lr] ** 2).sum(1)])
+                               for lr in lane_rows(rows, lanes)], 2)  # (2, B, lanes, width)
+            red = red.reshape(2, b, lanes, width // slot, slot).sum(4)  # a unit's slots
+            k_sum = red.sum(2)  # lanes in order
+            per_group, k0 = cg // slot, ch0 // slot
+            for g in range(k0 // per_group, (k0 + k_sum.shape[2] - 1) // per_group + 1):
+                lo = max(k0, g * per_group) - k0
+                hi = min(k0 + k_sum.shape[2], (g + 1) * per_group) - k0
+                part[:, :, g] += k_sum[:, :, lo:hi].sum(2)
+        parts.append(part)
+    tot = torch.zeros(2, b, groups)
+    for part in parts:  # rank order
+        tot += part
     count = hw * cg
-    mean = ch_s.reshape(b, groups, cg).sum(2) / count
-    var = torch.clamp_min(ch_q.reshape(b, groups, cg).sum(2) / count - mean * mean, 0.0)
-    rstd = torch.rsqrt(var + eps)
-    v = ((x3 - mean.repeat_interleave(cg, 1)[:, None]) * rstd.repeat_interleave(cg, 1)[:, None]
-         * scale + bias)
-    out = common.apply_act(v, act, leak).to(x.dtype).reshape(x.shape)
-    return out, torch.stack([mean, rstd])
+    mean = tot[0] / count
+    rstd = torch.rsqrt(torch.clamp_min(tot[1] / count - mean * mean, 0.0) + eps)
+    m, rs = mean.repeat_interleave(cg, 1)[:, None], rstd.repeat_interleave(cg, 1)[:, None]
+    out = torch.full_like(x3, float("nan"))
+    for rows in shares:
+        for ch0, width, lanes in chunks:
+            ch = slice(ch0, ch0 + width)
+            for lr in lane_rows(rows, lanes):
+                v = (x3[:, lr, ch] - m[..., ch]) * rs[..., ch] * scale[ch] + bias[ch]
+                out[:, lr, ch] = common.apply_act(v, act, leak)
+    return out.to(x.dtype).reshape(x.shape), torch.stack([mean, rstd])
+
+
+# (shape, groups): the C >= 32 edges of the plan and its cluster.
+EMULATED = [
+    ((2, 20, 17, 40), 32),  # 40 -> 20 groups; 5 (bfloat16) or 10 (float32) units a row
+    ((3, 7, 5, 36), 32),  # 36 -> 18 groups; no multiple of 8: one-channel units in bfloat16
+    ((3, 9, 9, 96), 20),  # 16 groups of 6, astride the 8-channel units
+    ((2, 4, 4, 520), 32),  # 26 groups of 20; 65 units, 3 lanes
+    ((2, 3, 3, 2560), 32),  # more units than threads: 2 or 3 chunks, a group astride two
+    ((5, 3, 1, 64), 32),  # HW 3: a cluster of 2, shares of 1 and 2 rows
+    ((1, 128, 128, 64), 32),  # config5 dec_1: shares past shared memory, rows read twice
+]
 
 
 @pytest.mark.parametrize("act", ACTS)
-@pytest.mark.parametrize("shape,groups", [((2, 20, 17, 40), 32),  # two row tiles, 40/32 -> 20
-                                          ((3, 7, 5, 96), 32), ((2, 4, 4, 520), 32),
-                                          ((1, 32, 24, 64), 32)])  # three row tiles
-def test_kernel_pass_decomposition_matches_plain(act, shape, groups):
+@pytest.mark.parametrize("plan_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,groups", EMULATED)
+def test_cluster_kernel_emulation_matches_plain(shape, groups, plan_dtype, act):
     x, scale, bias = gn_operands(10, shape)
     gr = common.resolve_groups(shape[-1], groups)
-    got, stats = emulate_group_norm_act_kernel(t(x), t(scale), t(bias), gr, 1e-5, act, 0.2)
+    got, stats = emulate_group_norm_act_kernel(t(x), t(scale), t(bias), gr, 1e-5, act, 0.2,
+                                               getattr(torch, plan_dtype))
     want = NA.group_norm_act_plain(t(x), t(scale), t(bias), groups=groups, act=act)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
     xg = x.astype(np.float64).reshape(shape[0], -1, gr, shape[-1] // gr)
     np.testing.assert_allclose(stats[0].numpy(), xg.mean(axis=(1, 3)), **F32_TOL)
     np.testing.assert_allclose(stats[1].numpy(), 1 / np.sqrt(xg.var(axis=(1, 3)) + 1e-5),
                                **F32_TOL)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_cluster_of_16_emulation_matches_plain(act):
+    """The 16-block cluster the plan takes for 1 MB planes at B = 32, on a
+    small plane: 63 rows in shares of 3 and 4, 8 lanes of 8-channel units,
+    and shares that keep 2 of their rows in shared memory."""
+    shape, groups = (2, 9, 7, 64), 32
+    x, scale, bias = gn_operands(15, shape)
+    plan = NA._plan_for(2, 63, 64, groups, 16)._replace(keep_rows=2)
+    got, stats = emulate_group_norm_act_kernel(t(x), t(scale), t(bias), groups, 1e-5, act, 0.2,
+                                               torch.bfloat16, plan)
+    want = NA.group_norm_act_plain(t(x), t(scale), t(bias), groups=groups, act=act)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+    xg = x.astype(np.float64).reshape(2, -1, groups, 2)
+    np.testing.assert_allclose(stats[0].numpy(), xg.mean(axis=(1, 3)), **F32_TOL)
+
+
+# -- the plan -------------------------------------------------------------------------
+
+# NA.gn_plan, a copy of csrc/gn_cluster.cuh's make_plan, at every (dtype, B,
+# HW, C, groups) at which a layer of the five presets runs kernel 3:
+# (cluster, rows_max, keep_rows, vec, smem, reread). Below 32 samples every
+# cluster has 8 blocks; at B = 32 the planes whose 8-block shares take an SM
+# each (1 MB and more) go to 16 blocks. The 2 MB bfloat16 plane (config5
+# dec_1 and D conv_0_extra_0) at 8 blocks, and the float32 planes of 2 MB and
+# more, spill past shared memory.
+PRESET_PLANS = {
+    ('bfloat16', 1, 16, 512, 32): (8, 2, 2, 8, 4624, 0),
+    ('bfloat16', 1, 64, 512, 32): (8, 8, 8, 8, 10768, 0),
+    ('bfloat16', 1, 256, 512, 32): (8, 32, 32, 8, 35344, 0),
+    ('bfloat16', 1, 1024, 256, 32): (8, 128, 128, 8, 68112, 0),
+    ('bfloat16', 1, 4096, 128, 32): (8, 512, 512, 8, 135696, 0),
+    ('bfloat16', 1, 16384, 64, 32): (8, 2048, 1747, 8, 232336, 308224),
+    ('bfloat16', 8, 16, 512, 32): (8, 2, 2, 8, 4624, 0),
+    ('bfloat16', 8, 64, 512, 32): (8, 8, 8, 8, 10768, 0),
+    ('bfloat16', 8, 256, 512, 32): (8, 32, 32, 8, 35344, 0),
+    ('bfloat16', 8, 1024, 256, 32): (8, 128, 128, 8, 68112, 0),
+    ('bfloat16', 8, 4096, 128, 32): (8, 512, 512, 8, 135696, 0),
+    ('bfloat16', 8, 16384, 64, 32): (8, 2048, 1747, 8, 232336, 308224),
+    ('bfloat16', 32, 16, 512, 32): (8, 2, 2, 8, 4624, 0),
+    ('bfloat16', 32, 64, 512, 32): (8, 8, 8, 8, 10768, 0),
+    ('bfloat16', 32, 256, 512, 32): (8, 32, 32, 8, 35344, 0),
+    ('bfloat16', 32, 1024, 256, 32): (8, 128, 128, 8, 68112, 0),
+    ('bfloat16', 32, 4096, 128, 32): (16, 256, 256, 8, 70160, 0),
+    ('bfloat16', 32, 16384, 64, 32): (16, 1024, 1024, 8, 139792, 0),
+    ('float32', 1, 16, 512, 32): (8, 2, 2, 4, 6672, 0),
+    ('float32', 1, 64, 512, 32): (8, 8, 8, 4, 18960, 0),
+    ('float32', 1, 256, 256, 32): (8, 32, 32, 4, 35344, 0),
+    ('float32', 1, 256, 512, 32): (8, 32, 32, 4, 68112, 0),
+    ('float32', 1, 1024, 256, 32): (8, 128, 128, 4, 133648, 0),
+    ('float32', 1, 4096, 128, 32): (8, 512, 448, 4, 231952, 262144),
+    ('float32', 1, 16384, 64, 32): (8, 2048, 889, 4, 232208, 2373632),
+    ('float32', 8, 16, 512, 32): (8, 2, 2, 4, 6672, 0),
+    ('float32', 8, 64, 512, 32): (8, 8, 8, 4, 18960, 0),
+    ('float32', 8, 256, 256, 32): (8, 32, 32, 4, 35344, 0),
+    ('float32', 8, 256, 512, 32): (8, 32, 32, 4, 68112, 0),
+    ('float32', 8, 1024, 256, 32): (8, 128, 128, 4, 133648, 0),
+    ('float32', 8, 4096, 128, 32): (8, 512, 448, 4, 231952, 262144),
+    ('float32', 8, 16384, 64, 32): (8, 2048, 889, 4, 232208, 2373632),
+    ('float32', 32, 16, 512, 32): (8, 2, 2, 4, 6672, 0),
+    ('float32', 32, 64, 512, 32): (8, 8, 8, 4, 18960, 0),
+    ('float32', 32, 256, 256, 32): (8, 32, 32, 4, 35344, 0),
+    ('float32', 32, 256, 512, 32): (8, 32, 32, 4, 68112, 0),
+    ('float32', 32, 1024, 256, 32): (16, 64, 64, 4, 68112, 0),
+    ('float32', 32, 4096, 128, 32): (16, 256, 256, 4, 133648, 0),
+    ('float32', 32, 16384, 64, 32): (16, 1024, 889, 4, 232208, 552960),
+}
+
+
+def kernel3_layers(preset, dtype, batch):
+    """(name, HW, C, groups) of every layer of ``preset`` that runs kernel 3
+    in ``dtype``: the models run on the meta device, routed as on the card."""
+    m = dataclasses.replace(tcfg.get_preset(preset).model, compute_dtype=dtype)
+    with torch.device("meta"):
+        models = {"G": Generator(m), "D": Discriminator(m)}
+    s = m.image_size
+    frame = torch.empty(batch, s, s, m.image_channels, device="meta")
+    action = torch.empty(batch, m.action_dim, device="meta")
+    state = torch.empty(batch, m.state_dim, device="meta") if m.state_dim else None
+    seen = []
+    for prefix, model in models.items():
+        hooks = [block.register_forward_hook(
+            lambda mod, args, out, name=f"{prefix}.{name}": seen.append(
+                (name, mod, tuple(args[0].shape), tuple(out.shape))))
+            for name, block in model.named_children()]
+        with torch.no_grad():
+            model(frame, action, state) if prefix == "G" else model(frame, frame, action, state)
+        for h in hooks:
+            h.remove()
+    return [(name, y[1] * y[2], y[3], common.resolve_groups(y[3], block.groups))
+            for name, block, x, y in seen
+            if block.norm == "group" and envelope.route(
+                x, tuple(block.kernel.shape), block.stride, block.transpose, block.norm,
+                block.groups, getattr(torch, dtype)) == "split"]
+
+
+def check_plan_invariants(plan, dtype, b, hw, c, groups):
+    esize = torch.empty((), dtype=dtype).element_size()
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.cluster <= hw
+    assert plan.cluster >= 8 or b * plan.cluster >= NA.FILL_BLOCKS or 2 * plan.cluster > hw
+    if plan.cluster == 16:  # 8 blocks would each take an SM, in more than one round
+        at8 = NA._plan_for(esize, hw, c, groups, 8)
+        assert at8.smem > NA.TWO_PER_SM and b * 8 > NA.SMS
+    assert plan.rows_max == -(-hw // plan.cluster) and 0 <= plan.keep_rows <= plan.rows_max
+    assert plan.vec == (16 // esize if c % (16 // esize) == 0 else 1)
+    assert 0 < plan.smem <= NA.SMEM_MAX
+    slots = NA.unit_slots(plan.vec, c // groups)
+    assert plan.smem >= plan.keep_rows * c * esize + 4 * (2 * NA.NT * slots + 4 * groups) + 16
+    assert plan.reread == sum(max(len(NA.share_rows(hw, plan.cluster, q)) - plan.keep_rows, 0)
+                              for q in range(plan.cluster)) * c * esize
+    # A share that does not fit keeps as many rows as shared memory holds.
+    assert plan.keep_rows == plan.rows_max or plan.smem + c * esize > NA.SMEM_MAX
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("preset", sorted(tcfg.PRESETS))
+def test_plan_pinned_for_every_preset_layer_on_kernel_3(preset, dtype, batch):
+    layers = kernel3_layers(preset, dtype, batch)
+    # Only these run no kernel 3 (tests/test_torch_envelope.py's SPLIT).
+    assert (not layers) == (preset in ("config1", "config2", "config4") and dtype == "bfloat16")
+    for name, hw, c, groups in layers:
+        plan = NA.gn_plan(getattr(torch, dtype), batch, hw, c, groups)
+        assert tuple(plan) == PRESET_PLANS[(dtype, batch, hw, c, groups)], (name, plan)
+        check_plan_invariants(plan, getattr(torch, dtype), batch, hw, c, groups)
+
+
+# (dtype, B, HW, C, groups) -> plan at the edges: C no multiple of the unit,
+# groups lowered, odd planes, fewer rows than blocks, batches that fill the
+# card with smaller clusters, more channels than a row of units, the batch at
+# which a 1 MB plane goes to 16 blocks (17), the float32 planes that spill.
+EDGE_PLANS = {
+    ('bfloat16', 3, 35, 40, 20): (8, 5, 5, 8, 8928, 0),
+    ('bfloat16', 3, 35, 36, 18): (8, 5, 5, 1, 2720, 0),
+    ('float32', 3, 35, 36, 18): (8, 5, 5, 4, 5120, 0),
+    ('bfloat16', 2, 81, 96, 16): (8, 11, 11, 8, 18768, 0),
+    ('bfloat16', 2, 35, 520, 26): (8, 5, 5, 8, 22016, 0),
+    ('bfloat16', 2, 9, 2560, 32): (8, 2, 2, 8, 12816, 0),
+    ('bfloat16', 5, 3, 64, 32): (2, 2, 2, 8, 8976, 0),
+    ('float32', 4, 1, 64, 32): (1, 1, 1, 4, 4880, 0),
+    ('bfloat16', 64, 256, 512, 32): (4, 64, 64, 8, 68112, 0),
+    ('bfloat16', 128, 64, 512, 32): (2, 32, 32, 8, 35344, 0),
+    ('bfloat16', 256, 16, 512, 32): (1, 16, 16, 8, 18960, 0),
+    ('bfloat16', 256, 16384, 64, 32): (16, 1024, 1024, 8, 139792, 0),
+    ('float32', 128, 4096, 128, 32): (16, 256, 256, 4, 133648, 0),
+    ('bfloat16', 16, 4096, 128, 32): (8, 512, 512, 8, 135696, 0),
+    ('bfloat16', 17, 4096, 128, 32): (16, 256, 256, 8, 70160, 0),
+    ('float32', 2, 16384, 64, 32): (8, 2048, 889, 4, 232208, 2373632),
+    ('float32', 32, 16384, 64, 32): (16, 1024, 889, 4, 232208, 552960),
+}
+
+
+@pytest.mark.parametrize("key", sorted(EDGE_PLANS))
+def test_plan_pinned_at_edges(key):
+    dtype, b, hw, c, groups = key
+    plan = NA.gn_plan(getattr(torch, dtype), b, hw, c, groups)
+    assert tuple(plan) == EDGE_PLANS[key], plan
+    check_plan_invariants(plan, getattr(torch, dtype), b, hw, c, groups)
 
 
 # -- backward --------------------------------------------------------------------
