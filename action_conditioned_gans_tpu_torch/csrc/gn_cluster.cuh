@@ -1,26 +1,30 @@
 // GroupNorm over one sample per thread-block cluster: the plan, the load of a
-// block's share into shared memory, the per-group partial sums and their
-// reduction across the cluster through distributed shared memory (DSMEM).
+// block's share into shared memory, the partial sums and their reduction
+// across the cluster through distributed shared memory (DSMEM). Kernel 3
+// (group_norm_act.cu, the forward) and kernel 4 (gn_act_bwd.cu, the
+// backward) are built on it.
 //
 // A sample's (HW, C) plane is cut into `cluster` contiguous shares of whole
 // rows, one per block of the cluster: block q holds rows
 // [q*HW/cluster, (q+1)*HW/cluster). A block keeps the first `keep_rows` rows of
-// its share in shared memory (one read of x from device memory, by the TMA's
-// 1-D bulk copy on an mbarrier) and reads the rest, if any, from global
-// memory twice (the second read finds it in L2).
+// its share in shared memory (one read of its inputs from device memory, by
+// the TMA's 1-D bulk copy on an mbarrier) and reads the rest, if any, from
+// global memory twice (the second read finds it in L2). A row is the bytes of
+// every array the kernel keeps: x for kernel 3; y, out and g for kernel 4.
 //
 // Inside a block the share is walked by columns: the C channels are cut into
-// units of `vec` channels (16 bytes when C allows, else 1 channel), and the
-// units into chunks of at most NT. In a chunk of `cw` units thread t owns unit
-// t % cw and every (NT / cw)-th row from t / cw (its lane), so each thread
-// sees fixed channels and no element needs a division by C. Consecutive
-// threads touch consecutive 16-byte units: shared and global accesses are
-// contiguous per warp.
+// units of `vec` channels (16 bytes of the narrowest array when C allows, else
+// 1 channel), and the units into chunks of at most NT. In a chunk of `cw`
+// units thread t owns unit t % cw and every (NT / cw)-th row from t / cw (its
+// lane), so each thread sees fixed channels and no element needs a division
+// by C. Consecutive threads touch consecutive 16-byte units: shared and
+// global accesses are contiguous per warp.
 //
 // Every sum runs in a fixed order (rows within a lane; a unit's channels into
 // per-group slots; lanes in four running sums; a group's slots 32 at a time,
-// then a fixed shuffle tree; the cluster's blocks by rank), so two launches
-// on the same input give the same bits; there are no atomics.
+// then a fixed shuffle tree, or (kernel 4) a group's channels in a fixed
+// order by one thread; the cluster's blocks by rank), so two launches on the
+// same input give the same bits; there are no atomics.
 #pragma once
 
 #include <stdint.h>
@@ -55,52 +59,87 @@ __host__ __device__ inline int unit_slots(int vec, int cg) {
   return cg % vec == 0 ? 1 : (vec % cg == 0 ? vec / cg : vec);
 }
 
-// Bytes of shared memory past the kept rows: two float arrays of NT * slots
-// lane partials (S1, S2), this block's per-group partials (2 * groups) and
-// the cluster's sums, then mean and rstd (2 * groups); then the copy's
-// mbarrier.
+// Bytes of kernel 3's shared memory past the kept rows: two float arrays of
+// NT * slots lane partials (S1, S2), this block's per-group partials (2 *
+// groups) and the cluster's sums, then mean and rstd (2 * groups); then the
+// copy's mbarrier.
 inline long long scratch_bytes(int vec, int cg, int groups) {
   return 4LL * (2LL * NT * unit_slots(vec, cg) + 4LL * groups) + 16;
 }
 
+// What a block of a kernel keeps: the bytes of one row of its kept arrays,
+// its unit width, and its shared memory past the kept rows (a multiple of
+// 16 bytes).
+struct Rows {
+  long long row_bytes;
+  int vec;
+  long long scratch;
+};
+
+// Kernel 3's rows: x in `esize`-byte elements.
+inline Rows norm_rows(int esize, int C, int groups) {
+  const int vec = C % (16 / esize) == 0 ? 16 / esize : 1;
+  return Rows{(long long)C * esize, vec, scratch_bytes(vec, C / groups, groups)};
+}
+
 // The plan at a given cluster size. smem < 0: no plan fits a block.
-inline Plan plan_for(int esize, int HW, int C, int groups, int cluster) {
+inline Plan plan_at(const Rows& s, int HW, int cluster) {
   Plan p;
   p.cluster = cluster;
-  p.vec = C % (16 / esize) == 0 ? 16 / esize : 1;
+  p.vec = s.vec;
   p.rows_max = (HW + cluster - 1) / cluster;
-  const long long row_bytes = (long long)C * esize;
-  const long long scratch = scratch_bytes(p.vec, C / groups, groups);
-  const long long room = SMEM_MAX - scratch;
-  const long long fit = room > 0 ? room / row_bytes : 0;
+  const long long room = SMEM_MAX - s.scratch;
+  const long long fit = room > 0 ? room / s.row_bytes : 0;
   p.keep_rows = (int)(fit < p.rows_max ? fit : p.rows_max);
-  p.smem = room < 0 ? -1 : (int)(align16(p.keep_rows * row_bytes) + scratch);
+  p.smem = room < 0 ? -1 : (int)(align16(p.keep_rows * s.row_bytes) + s.scratch);
   long long reread = 0;
   for (int q = 0; q < cluster; ++q) {
     const long long n = (long long)(q + 1) * HW / cluster - (long long)q * HW / cluster;
-    if (n > p.keep_rows) reread += (n - p.keep_rows) * row_bytes;
+    if (n > p.keep_rows) reread += (n - p.keep_rows) * s.row_bytes;
   }
   p.reread = (int)reread;
   return p;
 }
 
-// The one plan of a (B, HW, C) GroupNorm with `groups` groups. The cluster
-// doubles from 1 while it may (at most PORTABLE_CLUSTER blocks, each with a
-// row) and either the grid has fewer than FILL_BLOCKS blocks or a share does
-// not fit a block's shared memory. A cluster of 8 whose blocks each take an
-// SM of their own (more shared memory than TWO_PER_SM) and that the card
-// cannot hold at once for all B samples doubles once more, to 16.
-inline Plan make_plan(int esize, int B, int HW, int C, int groups) {
+// The one plan of B samples of HW rows. The cluster doubles from 1 while it
+// may (at most PORTABLE_CLUSTER blocks, each with a row) and either the grid
+// has fewer than FILL_BLOCKS blocks or a share does not fit a block's shared
+// memory. A cluster of 8 whose blocks each take an SM of their own (more
+// shared memory than TWO_PER_SM) and that the card cannot hold at once for
+// all B samples doubles once more, to 16.
+inline Plan choose_plan(const Rows& s, int B, int HW) {
   int k = 1;
   while (2 * k <= PORTABLE_CLUSTER && 2 * k <= HW) {
-    const Plan p = plan_for(esize, HW, C, groups, k);
+    const Plan p = plan_at(s, HW, k);
     if ((long long)B * k >= FILL_BLOCKS && p.keep_rows == p.rows_max) break;
     k *= 2;
   }
-  const Plan p = plan_for(esize, HW, C, groups, k);
+  const Plan p = plan_at(s, HW, k);
   if (k == PORTABLE_CLUSTER && 2 * k <= HW && p.smem > TWO_PER_SM && (long long)B * k > SMS)
-    return plan_for(esize, HW, C, groups, 2 * k);
+    return plan_at(s, HW, 2 * k);
   return p;
+}
+
+// The smallest cluster (1, 2, 4, 8, then MAX_CLUSTER blocks, at most one a
+// row) whose shares all fit a block's shared memory; where none does, the
+// largest, with the rows that do not fit read twice.
+inline Plan fit_plan(const Rows& s, int HW) {
+  int k = 1;
+  for (;;) {
+    const Plan p = plan_at(s, HW, k);
+    if (p.keep_rows == p.rows_max || 2 * k > MAX_CLUSTER || 2 * k > HW) return p;
+    k *= 2;
+  }
+}
+
+// Kernel 3's plan at a given cluster size, and its one plan of a (B, HW, C)
+// GroupNorm with `groups` groups.
+inline Plan plan_for(int esize, int HW, int C, int groups, int cluster) {
+  return plan_at(norm_rows(esize, C, groups), HW, cluster);
+}
+
+inline Plan make_plan(int esize, int B, int HW, int C, int groups) {
+  return choose_plan(norm_rows(esize, C, groups), B, HW);
 }
 
 // Lets `kernel` take any plan: the most dynamic shared memory, and clusters
@@ -177,10 +216,12 @@ __device__ __forceinline__ float load_peer(const float* p, unsigned rank) {
 
 // -- the share in shared memory -------------------------------------------------------
 
-// One thread: initialise the mbarrier at `bar` for one arrival, visible to
-// the async proxy; a __syncthreads() must follow before others use it.
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+// One thread: initialise the mbarrier at `bar` for `arrivals` arrivals (one
+// per bulk_load on it), visible to the async proxy; a __syncthreads() must
+// follow before others use it.
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t arrivals = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
@@ -215,14 +256,18 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar) {
         : "memory");
 }
 
-// One unit of V channels (16 bytes, or one element when V == 1) as float32.
+// One unit of V channels (16 bytes of bfloat16, 16 or 32 bytes of float32, or
+// one element when V == 1) as float32.
 template <typename T, int V>
 __device__ __forceinline__ void load_unit(const T* p, float (&f)[V]) {
   if constexpr (V == 1) {
     f[0] = to_f32(*p);
   } else if constexpr (sizeof(T) == 4) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    f[0] = u.x, f[1] = u.y, f[2] = u.z, f[3] = u.w;
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 u = reinterpret_cast<const float4*>(p)[i];
+      f[4 * i] = u.x, f[4 * i + 1] = u.y, f[4 * i + 2] = u.z, f[4 * i + 3] = u.w;
+    }
   } else {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
@@ -253,16 +298,12 @@ __device__ __forceinline__ void store_unit(T* p, const float (&f)[V]) {
 
 // -- partial sums and their reduction ---------------------------------------------------
 
-// Folds one chunk's lane partials into per-group sums. red_s / red_q hold
-// lanes x width slots (lane-major), slot k of the chunk being the block-wide
-// slot k0 + k; a group holds per_group consecutive slots. part[g] and
-// part[groups + g] accumulate S1 and S2 of group g, chunk after chunk. First
-// one thread per slot sums its lanes (four running sums over lanes l % 4,
-// then added pairwise), into lane 0's row; then one warp per group sums the
-// group's slots, 32 at a time, and reduces the warp with a fixed shuffle
-// tree. The order never depends on scheduling.
-__device__ __forceinline__ void fold_groups(float* red_s, float* red_q, int lanes, int width,
-                                            int k0, int per_group, int groups, float* part) {
+// Sums one chunk's lane partials over the lanes. red_s / red_q hold lanes x
+// width values (lane-major); sum_s[k] and sum_q[k] receive value k's sums,
+// one thread per value, in four running sums over lanes l % 4, then added
+// pairwise. sum_s / sum_q may be red_s / red_q themselves (lane 0's row).
+__device__ __forceinline__ void fold_lanes(const float* red_s, const float* red_q, int lanes,
+                                           int width, float* sum_s, float* sum_q) {
   for (int k = threadIdx.x; k < width; k += blockDim.x) {
     float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
     for (int l = 0; l < lanes; l += 4)
@@ -272,9 +313,21 @@ __device__ __forceinline__ void fold_groups(float* red_s, float* red_q, int lane
           s[i] += red_s[(l + i) * width + k];
           q[i] += red_q[(l + i) * width + k];
         }
-    red_s[k] = (s[0] + s[1]) + (s[2] + s[3]);
-    red_q[k] = (q[0] + q[1]) + (q[2] + q[3]);
+    sum_s[k] = (s[0] + s[1]) + (s[2] + s[3]);
+    sum_q[k] = (q[0] + q[1]) + (q[2] + q[3]);
   }
+}
+
+// Folds one chunk's lane partials into per-group sums. red_s / red_q hold
+// lanes x width slots (lane-major), slot k of the chunk being the block-wide
+// slot k0 + k; a group holds per_group consecutive slots. part[g] and
+// part[groups + g] accumulate S1 and S2 of group g, chunk after chunk. First
+// the lanes fold into lane 0's row (fold_lanes); then one warp per group sums
+// the group's slots, 32 at a time, and reduces the warp with a fixed shuffle
+// tree. The order never depends on scheduling.
+__device__ __forceinline__ void fold_groups(float* red_s, float* red_q, int lanes, int width,
+                                            int k0, int per_group, int groups, float* part) {
+  fold_lanes(red_s, red_q, lanes, width, red_s, red_q);
   __syncthreads();
   const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int g0 = k0 / per_group, g1 = (k0 + width - 1) / per_group;
@@ -294,6 +347,26 @@ __device__ __forceinline__ void fold_groups(float* red_s, float* red_q, int lane
       part[g] += s;
       part[groups + g] += q;
     }
+  }
+}
+
+// Kernel 4's group sums of per-channel sums: part[g] = sum over the channels
+// c of group g of scale[c] * ch_s[c], and part[groups + g] likewise of ch_q,
+// for the C = groups * cg channels. One thread per group adds its channels
+// in a fixed order: from channel g % cg of the group on, cyclically, so that
+// the threads of a warp read different shared-memory banks.
+__device__ __forceinline__ void fold_scaled_groups(const float* ch_s, const float* ch_q,
+                                                   const float* scale, int cg, int groups,
+                                                   float* part) {
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    float s = 0.f, q = 0.f;
+    for (int i = 0, j = g % cg; i < cg; ++i, j = j + 1 == cg ? 0 : j + 1) {
+      const int c = g * cg + j;
+      s = fmaf(scale[c], ch_s[c], s);
+      q = fmaf(scale[c], ch_q[c], q);
+    }
+    part[g] = s;
+    part[groups + g] = q;
   }
 }
 

@@ -131,7 +131,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "gn_act_bwd":
-        lib.acg_gn_bwd_scratch_floats.argtypes = [_I] * 4  # B, HW, C, groups
+        lib.acg_gn_bwd_plan.argtypes = [_I] * 6 + [_P]  # y_bytes, t_bytes, B, HW, C, groups, out
+        lib.acg_gn_bwd_plan.restype = _I
+        lib.acg_gn_bwd_max_active_clusters.argtypes = [_I] * 6  # y_bytes, t_bytes, B, HW, C, groups
+        lib.acg_gn_bwd_max_active_clusters.restype = _I
+        lib.acg_gn_bwd_scratch_floats.argtypes = [_I] * 2  # B, C
         lib.acg_gn_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.acg_gn_act_bwd.argtypes = (
             [_P] * 10  # y, out, g, scale, mean, rstd, dx, dscale, dbias, scratch

@@ -9,13 +9,26 @@ and the (mean, rstd) their forward already computed, and the standalone
 GroupNorm kernel's (``ops/kernels/norm_act.py``) with its input ``x`` in the
 compute dtype as ``y``.
 
+The kernel is one cluster launch and a batch sum. The cluster launch runs
+one thread-block cluster per sample: each block copies its share of the
+sample's rows of ``y``, ``out`` and ``g`` into shared memory, sums
+``dpre`` and ``dpre * xhat`` per channel, the blocks reduce their
+scale-weighted per-group sums through distributed shared memory for ``dx``
+and their per-channel sums into the sample's (dbias, dscale) partials, and
+each block writes ``dx`` from its share where it lies. The second launch sums
+the per-sample partials over the batch in sample order. :func:`gn_bwd_plan`
+is the Python copy of the C plan (``acg_gn_bwd_plan``: the smallest cluster,
+1 to 16 blocks, whose shares fit a block's shared memory;
+``gn_cluster.fit_plan``).
+
 For a CUDA tensor :func:`gn_act_bwd` launches the kernel or raises; for a CPU
 tensor it computes the plain version, ``reference.gn_act_grads``.
-``LAUNCHES["gn_act_bwd"]`` counts kernel launches.
+``LAUNCHES["gn_act_bwd"]`` counts calls that launched the kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -23,13 +36,46 @@ import torch
 from action_conditioned_gans_tpu_torch.ops import reference
 from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, resolve_groups
 from action_conditioned_gans_tpu_torch.ops.kernels import build
+from action_conditioned_gans_tpu_torch.ops.kernels.gn_cluster import NT, GnPlan, align16, fit_plan
 
 LAUNCHES = {"gn_act_bwd": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+STAGES = 4  # csrc/gn_act_bwd.cu: mbarriers a block's kept rows are copied on
 
 
 def reset_launches() -> None:
     LAUNCHES["gn_act_bwd"] = 0
+
+
+def _rows(y_bytes: int, t_bytes: int, c: int, groups: int) -> tuple:
+    """``bwd_rows`` of csrc/gn_act_bwd.cu: (bytes of a row of y, out and g,
+    unit width in channels: 16 bytes of out, shared memory past the kept
+    rows: the mbarriers, lane partials of S1 and S2, per-channel sums, five
+    per-channel coefficients, this block's and the cluster's group sums)."""
+    vec = 16 // t_bytes if c % (16 // t_bytes) == 0 else 1
+    scratch = align16(8 * STAGES + 4 * (2 * NT * vec + 7 * c + 4 * groups))
+    return c * (y_bytes + 2 * t_bytes), vec, scratch
+
+
+def gn_bwd_plan(y_dtype: torch.dtype, dtype: torch.dtype, b: int, hw: int, c: int,
+                groups: int) -> GnPlan:
+    """The kernel's plan for y (b, hw, c) in ``y_dtype`` and out, g in ``dtype``
+    with ``groups`` (resolved) groups: a copy of ``acg_gn_bwd_plan``. The
+    smallest cluster whose shares fit a block (``gn_cluster.fit_plan``); the
+    batch ``b`` does not change it."""
+    size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
+    return fit_plan(*_rows(size(y_dtype), size(dtype), c, groups), hw)
+
+
+def kernel_plan(y_dtype: torch.dtype, dtype: torch.dtype, b: int, hw: int, c: int,
+                groups: int) -> GnPlan:
+    """The plan as the kernel's library computes it (``acg_gn_bwd_plan``; on the card)."""
+    out = (ctypes.c_int * 6)()
+    size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
+    rc = build.load("gn_act_bwd").acg_gn_bwd_plan(size(y_dtype), size(dtype), b, hw, c, groups, out)
+    if rc:
+        raise RuntimeError(f"gn_act_bwd: no plan fits y({b}, {hw}, {c}): CUDA error {rc}")
+    return GnPlan(*out)
 
 
 def gn_act_bwd_plain(
@@ -96,19 +142,26 @@ def gn_act_bwd(
         raise ValueError("gn_act_bwd: y, out, g, mean and rstd must be contiguous")
     if mean.dtype != torch.float32 or rstd.dtype != torch.float32:
         raise TypeError("gn_act_bwd: mean and rstd must be float32")
+    if gn_bwd_plan(y.dtype, out.dtype, b, h * w, c, grp).smem < 0:
+        raise ValueError(f"gn_act_bwd: no plan fits a block for C={c}, groups={grp}")
+    return _launch(y, scale.float().contiguous(), out, g, mean, rstd, grp, act, leak)
+
+
+def _launch(y, scale, out, g, mean, rstd, groups, act, leak):
+    """The kernel's two launches on checked operands (``groups`` resolved,
+    ``scale`` float32): (dx, dscale, dbias)."""
+    b, h, w, c = y.shape
     lib = build.load("gn_act_bwd")
-    scale_f = scale.float().contiguous()
     dx = torch.empty_like(out)
     dscale = torch.empty(c, device=y.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
-    scratch = torch.empty(
-        lib.acg_gn_bwd_scratch_floats(b, h * w, c, grp), device=y.device, dtype=torch.float32
-    )
+    scratch = torch.empty(lib.acg_gn_bwd_scratch_floats(b, c), device=y.device,
+                          dtype=torch.float32)
     rc = lib.acg_gn_act_bwd(
-        y.data_ptr(), out.data_ptr(), g.data_ptr(), scale_f.data_ptr(), mean.data_ptr(),
+        y.data_ptr(), out.data_ptr(), g.data_ptr(), scale.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), scratch.data_ptr(),
-        _DTYPES[y.dtype], _DTYPES[out.dtype], b, h * w, c, grp, ACTIVATIONS.index(act), float(leak),
-        torch.cuda.current_stream(y.device).cuda_stream,
+        _DTYPES[y.dtype], _DTYPES[out.dtype], b, h * w, c, groups, ACTIVATIONS.index(act),
+        float(leak), torch.cuda.current_stream(y.device).cuda_stream,
     )
     if rc:
         raise RuntimeError(f"gn_act_bwd kernel launch failed: CUDA error {rc}")

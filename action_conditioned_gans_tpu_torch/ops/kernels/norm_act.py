@@ -10,8 +10,9 @@ The kernel is one launch with one thread-block cluster per sample: each block
 copies its share of the sample's rows into shared memory, the blocks reduce
 their per-group sums through distributed shared memory, and each normalises
 its share where it lies. :func:`gn_plan` is the Python copy of the C plan
-(``acg_gn_plan``, ``csrc/gn_cluster.cuh``): cluster size, rows per block,
-rows kept in shared memory and bytes read twice.
+(``acg_gn_plan``, ``csrc/gn_cluster.cuh``, through ``gn_cluster.py``):
+cluster size, rows per block, rows kept in shared memory and bytes read
+twice.
 
 For a CUDA tensor :func:`group_norm_act` launches the kernel or raises; for
 a CPU tensor it computes the plain version, :func:`group_norm_act_plain`,
@@ -34,13 +35,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
 from action_conditioned_gans_tpu_torch.ops import reference
 from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, resolve_groups
 from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd
+from action_conditioned_gans_tpu_torch.ops.kernels.gn_cluster import (  # noqa: F401 (the tests read these here)
+    FILL_BLOCKS, NT, SMEM_MAX, SMS, TWO_PER_SM, GnPlan, choose_plan, plan_at, share_rows,
+)
 
 LAUNCHES = {"group_norm_act": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,64 +54,27 @@ def reset_launches() -> None:
     LAUNCHES["group_norm_act"] = 0
 
 
-# csrc/gn_cluster.cuh: threads per block, a block's dynamic shared memory on
-# sm_90, the largest portable cluster, the blocks the plan aims for, the
-# H100's SMs, the most shared memory at which two blocks share an SM.
-NT, SMEM_MAX, PORTABLE_CLUSTER, FILL_BLOCKS, SMS, TWO_PER_SM = 256, 232448, 8, 256, 132, 115200
-
-
-class GnPlan(NamedTuple):
-    cluster: int  # blocks per sample: one thread-block cluster
-    rows_max: int  # rows of the largest share, ceil(HW / cluster)
-    keep_rows: int  # rows of its share a block keeps in shared memory
-    vec: int  # channels per unit: 16 bytes' worth, or 1 when C is no multiple of that
-    smem: int  # dynamic shared memory per block, bytes (< 0: no plan fits)
-    reread: int  # bytes of one sample read twice (rows past keep_rows)
-
-
-def share_rows(hw: int, cluster: int, rank: int) -> range:
-    """The rows of the sample that block ``rank`` of the cluster holds."""
-    return range(rank * hw // cluster, (rank + 1) * hw // cluster)
-
-
 def unit_slots(vec: int, cg: int) -> int:
     """Per-group slots a thread folds its unit's ``vec`` channels into
     (``gnc::unit_slots``): each slot lies in one group of ``cg`` channels."""
     return 1 if cg % vec == 0 else (vec // cg if vec % cg == 0 else vec)
 
 
-def _plan_for(esize: int, hw: int, c: int, groups: int, cluster: int) -> GnPlan:
+def _rows(esize: int, c: int, groups: int) -> tuple:
+    """``gnc::norm_rows``: (bytes of a row of x, unit width, shared memory past
+    the kept rows: lane partials S1 and S2, group partials, the mbarrier)."""
     vec = 16 // esize if c % (16 // esize) == 0 else 1
-    rows_max = -(-hw // cluster)
-    # lane partials (S1, S2), group partials, the mbarrier
-    scratch = 4 * (2 * NT * unit_slots(vec, c // groups) + 4 * groups) + 16
-    room = SMEM_MAX - scratch
-    keep = min(max(room, 0) // (c * esize), rows_max)
-    smem = -1 if room < 0 else -(-keep * c * esize // 16) * 16 + scratch
-    reread = sum(max(len(share_rows(hw, cluster, q)) - keep, 0) * c * esize
-                 for q in range(cluster))
-    return GnPlan(cluster, rows_max, keep, vec, smem, reread)
+    return c * esize, vec, 4 * (2 * NT * unit_slots(vec, c // groups) + 4 * groups) + 16
+
+
+def _plan_for(esize: int, hw: int, c: int, groups: int, cluster: int) -> GnPlan:
+    return plan_at(*_rows(esize, c, groups), hw, cluster)
 
 
 def gn_plan(dtype: torch.dtype, b: int, hw: int, c: int, groups: int) -> GnPlan:
     """The kernel's plan for x (b, hw, c) in ``dtype`` with ``groups`` (resolved)
-    groups: a copy of ``gnc::make_plan``. The cluster doubles from 1 while it
-    may (at most PORTABLE_CLUSTER blocks, each with a row) and either the grid
-    has fewer than FILL_BLOCKS blocks or a share overflows a block. A cluster
-    of 8 whose blocks each need an SM of their own (more shared memory than
-    TWO_PER_SM) and that the card cannot hold at once for all b samples
-    doubles once more, to 16."""
-    esize = torch.empty((), dtype=dtype).element_size()
-    k = 1
-    while 2 * k <= PORTABLE_CLUSTER and 2 * k <= hw:
-        p = _plan_for(esize, hw, c, groups, k)
-        if b * k >= FILL_BLOCKS and p.keep_rows == p.rows_max:
-            break
-        k *= 2
-    p = _plan_for(esize, hw, c, groups, k)
-    if k == PORTABLE_CLUSTER and 2 * k <= hw and p.smem > TWO_PER_SM and b * k > SMS:
-        return _plan_for(esize, hw, c, groups, 2 * k)
-    return p
+    groups: a copy of ``gnc::make_plan`` (``gn_cluster.choose_plan``)."""
+    return choose_plan(*_rows(torch.empty((), dtype=dtype).element_size(), c, groups), b, hw)
 
 
 def kernel_plan(dtype: torch.dtype, b: int, hw: int, c: int, groups: int) -> GnPlan:

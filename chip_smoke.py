@@ -11,7 +11,7 @@ Phases, each of which fails the run (non-zero exit, no final line):
    ``action_conditioned_gans_tpu_torch/csrc`` (one nvcc per source, in
    parallel) and print what ``ptxas -v`` says of the wgmma mainloop's
    instances in kernels 1 and 2, of kernel 2's narrow mainloop and of
-   kernel 3's cluster kernel (registers, spills: none allowed).
+   kernels 3 and 4's cluster kernels (registers, spills: none allowed).
 2. Per-kernel parity of kernels 1-2 at the seven config1 generator layer
    shapes and the four config1 discriminator layer shapes (batch 8), at
    every other shape of kernels 1-2 on the main paths (the config3 and
@@ -64,13 +64,20 @@ Phases, each of which fails the run (non-zero exit, no final line):
    the plan's size and at 16 blocks), then the same at the rollout's B=8.
    Kernel-level times are device times: 20 calls captured in a CUDA graph
    and replayed (``device_time_ms``).
-7. The GroupNorm+activation backward kernel (kernel 4) against its plain
-   version (``reference.gn_act_grads``) at every config1 GroupNorm shape
-   (B=8) and at ragged shapes, for lrelu / relu / tanh / none: float32
-   within 1e-4 abs + 1e-4 rel; bfloat16 dx within 1e-2 abs + 1e-2 rel of
-   the plain version in float32 on the same inputs (one bfloat16 rounding
-   of dx), dscale and dbias within the float32 bar. The same with a
-   bfloat16 y (the backward of kernel 3's layers) at kernel 3's shapes.
+7. The GroupNorm+activation backward kernel (kernel 4: one cluster launch,
+   one thread-block cluster per sample, and a batch sum; csrc/gn_act_bwd.cu)
+   against its plain version (``reference.gn_act_grads``) at every config1
+   GroupNorm shape (B=8), at ragged shapes, at the 2 MB float32-y plane
+   at B=2 (a cluster of 16) and at a plane past a cluster's shared memory
+   (128x128x64, 8 MB a sample in bfloat16, 12 MB in float32: rows read
+   twice, checked from the plan), for lrelu / relu / tanh / none: float32 within
+   1e-4 abs + 1e-4 rel; bfloat16 dx within 1e-2 abs + 1e-2 rel of the plain
+   version in float32 on the same inputs (one bfloat16 rounding of dx),
+   dscale and dbias within the float32 bar; a second launch on the same
+   inputs bit-identical (dx, dscale, dbias). The same with a bfloat16 y
+   (the backward of kernel 3's layers) at kernel 3's shapes. The plan
+   (``acg_gn_bwd_plan``) of every kernel-4 call of the whole run is held
+   against its Python copy (``gn_bwd.gn_bwd_plan``) at the end.
 8. Autograd parity in float32, TF32 off: every config1 G and D layer at B=4
    through the fused kernels' autograd Functions, and two split layers
    (config1 float32 D conv_3, config3 D conv_4) through the cuDNN conv and
@@ -92,13 +99,15 @@ Phases, each of which fails the run (non-zero exit, no final line):
     parameter sets moved, peak memory printed. Each distinct conv call and
     each kernel-3 call of the counted step held against its plain version
     as in phase 2 (bfloat16, 3e-2).
-11. Per-call times of kernel 4 at the shapes of the config1 step (the
-    ``gnbwd_layer`` lines), each checked against its plain version in
-    float32 on the same inputs: dx within 1e-2 abs + 1e-2 rel, dscale and
-    dbias within 1e-4 of their largest magnitude + 1e-4 rel. Then a
-    ``kernels`` JSON line (per kernel: launches summed over the four main
-    paths, max |err|, kernel, plain, bound and library times), then the
-    final line ``{"ok": true, "device": {...}}``.
+11. Per-call times of kernel 4 at the shapes of the config1 step and of
+    the config3 step (the ``gnbwd_layer`` lines, with the call's plan and
+    how many of its clusters the card holds at once), each checked against
+    its plain version in float32 on the same inputs: dx within 1e-2 abs +
+    1e-2 rel, dscale and dbias within 1e-4 of their largest magnitude +
+    1e-4 rel. Then a ``kernels`` JSON line (per kernel: launches summed over
+    the four main paths, max |err|, kernel, plain, bound and library times;
+    kernel 4's over the config1 step's calls, and its config3 step's sums
+    beside them), then the final line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -713,16 +722,31 @@ def within(got, want, atol, rtol):
 
 def phase_gn_bwd_parity():
     """Kernel 4 vs reference.gn_act_grads at the config1 GroupNorm shapes
-    (B=8) and at ragged ones, every activation, float32 and bfloat16."""
+    (B=8), at ragged ones, at a 2 MB plane and at a plane whose rows do not
+    all fit its cluster, every activation, float32 and bfloat16; two
+    launches bit-identical."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import gn_bwd
+
     shapes = [((8, 32, 32, 64), 32), ((8, 16, 16, 128), 32), ((8, 8, 8, 256), 32),
               ((8, 4, 4, 512), 32),
               # ragged: groups 32 -> 5, 32 -> 20, 8 -> 6, 32 -> 24; odd planes
-              ((3, 7, 9, 5), 32), ((2, 5, 11, 80), 32), ((3, 9, 9, 12), 8), ((2, 13, 3, 48), 32)]
+              ((3, 7, 9, 5), 32), ((2, 5, 11, 80), 32), ((3, 9, 9, 12), 8), ((2, 13, 3, 48), 32),
+              # the 2 MB plane of config3 G dec_1 at B=2 (a cluster of 16),
+              # and a plane past a cluster's shared memory (rows read twice)
+              ((2, 64, 64, 64), 32), ((2, 128, 128, 64), 32)]
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = gn_bwd.kernel_plan(torch.float32, dtype, 2, 128 * 128, 64, 32)
+        check(plan.reread > 0, f"gn_act_bwd: 128x128x64 in {dtype} should read rows twice: {plan}")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, (shape, groups) in enumerate(shapes):
         for act in ACTS:
             for dtype in (torch.float32, torch.bfloat16):
-                got, want, _ = gn_bwd_pair(shape, groups, act, dtype, seed=400 + i)
+                got, want, (y, scale, _, out, g, mean, rstd) = gn_bwd_pair(shape, groups, act,
+                                                                           dtype, seed=400 + i)
+                again = gn_bwd.gn_act_bwd(y, scale, out, g, mean, rstd, groups=groups, act=act,
+                                          leak=0.2)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"gn_act_bwd: two launches differ at {shape} {act} {dtype}")
                 dx_bar = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
                 e_dx, ok_dx = within(got[0], want[0], *dx_bar)
                 e_s, ok_s = within(got[1], want[1], 1e-4, 1e-4)
@@ -734,7 +758,8 @@ def phase_gn_bwd_parity():
                 worst[dtype] = max(worst[dtype], e_dx, e_s, e_b)
     say(f"gn_act_bwd parity ({len(shapes)} shapes x {len(ACTS)} activations): "
         f"f32 max|d|={worst[torch.float32]:.3e} (bar 1e-4 + 1e-4 rel), "
-        f"bf16 max|d|={worst[torch.bfloat16]:.3e} (dx bar 1e-2 + 1e-2 rel)")
+        f"bf16 max|d|={worst[torch.bfloat16]:.3e} (dx bar 1e-2 + 1e-2 rel), "
+        "two launches bit-identical")
 
 
 def phase_autograd_parity(layers, batch=4):
@@ -919,14 +944,15 @@ def phase_train_conv_parity(conv_calls, worst):
 
 # Kernel-name fragments of the port's own kernels (csrc/). The GroupNorm
 # stats and apply passes (gn_common.cuh) are the conv kernels' epilogue;
-# kernel 3 is one cluster launch of its own.
+# kernel 3 is one cluster launch of its own; kernel 4 a cluster launch
+# (gn_bwd_cluster_kernel) and a batch sum (gn_bwd_batch_sum_kernel).
 OWN_KERNELS = {"conv_wgmma_kernel": "conv fwd GEMM", "conv_wmma_kernel": "conv fwd GEMM",
                "conv_fma_kernel": "conv fwd GEMM", "pack_weights_kernel": "conv weight packing",
                "narrow_transpose_kernel": "conv-transpose narrow (whole layer)",
                "gn_cluster_kernel": "group_norm_act (one cluster launch)",
                "gn_stats_kernel": "GroupNorm stats (conv epilogue)",
                "gn_apply_kernel": "GroupNorm apply (conv epilogue)",
-               "gn_bwd_": "gn_act_bwd"}
+               "gn_bwd_cluster_kernel": "gn_act_bwd", "gn_bwd_batch_sum_kernel": "gn_act_bwd"}
 
 
 def profile_call(path, fn, call_ms, top=14):
@@ -971,7 +997,7 @@ def library_gn_bwd(y, scale, bias, g, groups, act):
     runs (the activation's backward, then native_group_norm_backward),
     called directly. The yardstick, never called by the port."""
     n, h, w, c = y.shape
-    yl = y.permute(0, 3, 1, 2).contiguous()
+    yl = y.float().permute(0, 3, 1, 2).contiguous()
     gl = g.float().permute(0, 3, 1, 2).contiguous()
     pre, mean, rstd = torch.ops.aten.native_group_norm(yl, scale, bias, n, c, h * w, groups, 1e-5)
     act_bwd = {
@@ -984,10 +1010,24 @@ def library_gn_bwd(y, scale, bias, g, groups, act):
         act_bwd(), yl, mean, rstd, scale, n, c, h * w, groups, [True, True, True])
 
 
-def phase_gn_bwd_times(calls):
-    """Kernel 4 at each of the training step's calls: kernel, plain and
-    library times, the bound, and the bfloat16 error against the plain
-    version in float32 on the same inputs."""
+def kernel4_plan(shape, dtype, groups, y_dtype):
+    """Kernel 4's plan for a call (``acg_gn_bwd_plan``) and how many of its
+    clusters the card holds at once."""
+    from action_conditioned_gans_tpu_torch.ops.common import resolve_groups
+    from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd
+
+    b, h, w, c = shape
+    gr = resolve_groups(c, groups)
+    size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
+    return dict(plan=gn_bwd.kernel_plan(y_dtype, dtype, b, h * w, c, gr)._asdict(),
+                resident_clusters=build.load("gn_act_bwd").acg_gn_bwd_max_active_clusters(
+                    size(y_dtype), size(dtype), b, h * w, c, gr))
+
+
+def phase_gn_bwd_times(calls, path):
+    """Kernel 4 at each of a training step's calls: kernel, plain and
+    library times, the bound, the call's plan and resident clusters, and the
+    bfloat16 error against the plain version in float32 on the same inputs."""
     from action_conditioned_gans_tpu_torch.ops.common import resolve_groups
     from action_conditioned_gans_tpu_torch.ops.kernels import gn_bwd
 
@@ -1014,9 +1054,11 @@ def phase_gn_bwd_times(calls):
         nbytes = n * (y.element_size() + 3 * out.element_size()) + 4 * c + 8 * b * gr + 8 * c
         flops = 12 * n  # act', xhat, two sums, dx: float32 on the CUDA cores
         ops_ms, bytes_ms = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        row = dict(call=i, shape=list(shape), dtype=str(dtype)[6:], groups=gr, act=act, bytes=nbytes,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
-                   bound_by="operations" if ops_ms >= bytes_ms else "bytes", max_abs_err=err)
+        row = dict(path=path, call=i, shape=list(shape), dtype=str(dtype)[6:],
+                   y_dtype=str(y_dtype)[6:], groups=gr, act=act, bytes=nbytes, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes", max_abs_err=err,
+                   **kernel4_plan(shape, dtype, groups, y_dtype))
         say("gnbwd_layer " + json.dumps(row))
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
             tot[key] += row[key]
@@ -1183,10 +1225,26 @@ def record_kernel3_calls():
     return seen
 
 
-def check_plans(seen):
-    """The kernel's plan (acg_gn_plan) against its Python copy at every
-    kernel-3 call of the run."""
-    from action_conditioned_gans_tpu_torch.ops.kernels import norm_act
+def record_kernel4_calls():
+    """Wraps kernel 4's launch so that every call of the run leaves its
+    (y dtype, dtype, B, HW, C, groups) in the returned set."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import gn_bwd
+
+    seen, launch = set(), gn_bwd._launch
+
+    def recording(y, scale, out, g, mean, rstd, groups, act, leak):
+        b, h, w, c = y.shape
+        seen.add((str(y.dtype)[6:], str(out.dtype)[6:], b, h * w, c, groups))
+        return launch(y, scale, out, g, mean, rstd, groups, act, leak)
+
+    gn_bwd._launch = recording
+    return seen
+
+
+def check_plans(seen, seen4):
+    """The kernels' plans (acg_gn_plan, acg_gn_bwd_plan) against their Python
+    copies at every kernel-3 and kernel-4 call of the run."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import gn_bwd, norm_act
 
     for dtype, b, hw, c, g in sorted(seen):
         args = (getattr(torch, dtype), b, hw, c, g)
@@ -1195,6 +1253,13 @@ def check_plans(seen):
                          f"acg_gn_plan {lib}, Python copy {py}")
     say(f"group_norm_act plan: acg_gn_plan equals its Python copy at all {len(seen)} "
         "(dtype, B, HW, C, groups) of the run's kernel-3 calls")
+    for y_dtype, dtype, b, hw, c, g in sorted(seen4):
+        args = (getattr(torch, y_dtype), getattr(torch, dtype), b, hw, c, g)
+        lib, py = gn_bwd.kernel_plan(*args), gn_bwd.gn_bwd_plan(*args)
+        check(lib == py, f"gn_act_bwd plan at y {y_dtype} {dtype} ({b}, {hw}, {c}) groups {g}: "
+                         f"acg_gn_bwd_plan {lib}, Python copy {py}")
+    say(f"gn_act_bwd plan: acg_gn_bwd_plan equals its Python copy at all {len(seen4)} "
+        "(y dtype, dtype, B, HW, C, groups) of the run's kernel-4 calls")
 
 
 def kernel3_resources(shape, dtype, groups, act):
@@ -1314,14 +1379,15 @@ def main() -> int:
     for lib, kernel, want in (("conv_norm_act", "conv_wgmma_kernel", 10),
                               ("conv_transpose_norm_act", "conv_wgmma_kernel", 10),
                               ("conv_transpose_norm_act", "narrow_transpose_kernel", 4),
-                              ("group_norm_act", "gn_cluster_kernel", 16)):
+                              ("group_norm_act", "gn_cluster_kernel", 16),
+                              ("gn_act_bwd", "gn_bwd_cluster_kernel", 24)):
         found = {k: v for k, v in build.ptxas_report(lib).items() if kernel in k}
         check(len(found) == want, f"ptxas reported {len(found)} {kernel} instances in {lib}, want {want}")
         for k, v in sorted(found.items()):
             say(f"ptxas {lib} {kernel}<...>={k.split('kernel', 1)[1][:26]}: {v}")
             check(v["spill_stores"] == 0 and v["spill_loads"] == 0, f"{kernel} spills: {k} {v}")
 
-    kernel3_calls = record_kernel3_calls()
+    kernel3_calls, kernel4_calls = record_kernel3_calls(), record_kernel4_calls()
     predictor = preset_predictor("config1")
     rng = np.random.default_rng(2)
     frame = np.tanh(rng.standard_normal((8, 64, 64, 3))).astype(np.float32)
@@ -1360,14 +1426,17 @@ def main() -> int:
     launches["config1 step"], calls, conv_calls, _ = phase_training(config1_train_config(),
                                                                     "config1 step")
     phase_train_conv_parity(conv_calls, totals)
-    totals["gn_act_bwd"] = phase_gn_bwd_times(calls)
+    totals["gn_act_bwd"] = phase_gn_bwd_times(calls, "config1 step")
     from action_conditioned_gans_tpu_torch.config import get_preset
 
-    launches["config3 step"], _, conv_calls, norm_calls = phase_training(get_preset("config3"),
-                                                                         "config3 step")
+    launches["config3 step"], calls3, conv_calls, norm_calls = phase_training(
+        get_preset("config3"), "config3 step")
     phase_train_conv_parity(conv_calls, totals)
     phase_train_norm_parity(norm_calls, totals["group_norm_act"])
-    check_plans(kernel3_calls)
+    config3 = phase_gn_bwd_times(calls3, "config3 step")
+    totals["gn_act_bwd"]["max_abs_err"] = max(totals["gn_act_bwd"]["max_abs_err"],
+                                              config3["max_abs_err"])
+    check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 
     kernels = []
@@ -1381,6 +1450,9 @@ def main() -> int:
             bound_by="operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
             library_ms=t["library_ms"],
         ))
+        if name == "gn_act_bwd":  # kernel 4 over the config3 step's calls, beside config1's
+            kernels[-1].update({f"config3_step_{k}": config3[k]
+                                for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

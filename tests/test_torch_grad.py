@@ -4,9 +4,11 @@
   GroupNorm+activation backward kernel) against ``ops/gn.py``, and the
   kernel wrapper's CPU path against ``gn_act_bwd_pallas`` run in interpret
   mode, as tests/test_gn_backward.py runs it;
-* the kernel's pass decomposition (per-tile channel sums S1, S2, then the
-  group means from them), emulated in torch from ``csrc/gn_act_bwd.cu``,
-  since the CUDA kernel cannot run here;
+* the kernel's cluster decomposition (per-block channel sums S1, S2, the
+  scale-weighted group sums reduced in rank order, the per-sample partials
+  and the batch sum), emulated in torch from ``csrc/gn_act_bwd.cu``
+  (tests/test_torch_gn_bwd_cluster.py), since the CUDA kernel cannot run
+  here;
 * the autograd Functions of the fused conv blocks against ``jax.vjp`` of the
   JAX package's Pallas ``conv_norm_act`` / ``conv_transpose_norm_act``
   (interpret mode): dx, dw, dscale, dbias in float32 within 1e-3.
@@ -26,6 +28,7 @@ from action_conditioned_gans_tpu.ops.pallas.gn_bwd import gn_act_bwd_pallas
 from action_conditioned_gans_tpu_torch.ops import api, common, reference
 from action_conditioned_gans_tpu_torch.ops.kernels import conv as K
 from action_conditioned_gans_tpu_torch.ops.kernels import gn_bwd
+from tests.test_torch_gn_bwd_cluster import emulate_gn_act_bwd_kernel
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-3, rtol=1e-3)
@@ -120,35 +123,6 @@ def test_gn_act_bwd_cpu_path_matches_jax_pallas_kernel(act, dtype, c, groups):
     np.testing.assert_allclose(dx.float().numpy(), np.asarray(want[0]), **dx_tol)
     np.testing.assert_allclose(dscale.numpy(), np.asarray(want[1]), **GN_TOL)
     np.testing.assert_allclose(dbias.numpy(), np.asarray(want[2]), **GN_TOL)
-
-
-TILE_ROWS = 64  # csrc/gn_act_bwd.cu
-
-
-def emulate_gn_act_bwd_kernel(y, out, g, scale, mean, rstd, groups, act, leak):
-    """csrc/gn_act_bwd.cu pass by pass, in torch: per-tile channel sums S1 =
-    sum dpre and S2 = sum dpre * xhat, the per-sample reduction into dbias /
-    dscale partials and the two group means from S1, S2 and scale alone,
-    the batch sum, then the elementwise dx."""
-    b, h, w, c = y.shape
-    hw, cg = h * w, c // groups
-    y3, o3, g3 = y.reshape(b, hw, c), out.reshape(b, hw, c).float(), g.reshape(b, hw, c).float()
-    mean_c = mean.repeat_interleave(cg, dim=1)[:, None, :]
-    rstd_c = rstd.repeat_interleave(cg, dim=1)[:, None, :]
-    xhat = (y3 - mean_c) * rstd_c
-    dpre = common.act_bwd(g3, o3, act, leak)
-    tiles = -(-hw // TILE_ROWS)
-    s1 = torch.stack([dpre[:, i * TILE_ROWS:(i + 1) * TILE_ROWS].sum(1) for i in range(tiles)], 1)
-    s2 = torch.stack([(dpre * xhat)[:, i * TILE_ROWS:(i + 1) * TILE_ROWS].sum(1)
-                      for i in range(tiles)], 1)
-    c1, c2 = s1.sum(1), s2.sum(1)  # (B, C): the per-sample dbias / dscale partials
-    count = hw * cg
-    mh = (scale * c1).reshape(b, groups, cg).sum(2) / count
-    mhx = (scale * c2).reshape(b, groups, cg).sum(2) / count
-    h_ = dpre * scale
-    dx = rstd_c * (h_ - mh.repeat_interleave(cg, 1)[:, None, :]
-                   - xhat * mhx.repeat_interleave(cg, 1)[:, None, :])
-    return dx.reshape(y.shape).to(out.dtype), c2.sum(0), c1.sum(0)
 
 
 @pytest.mark.parametrize("act", ACTS)
