@@ -1,0 +1,131 @@
+"""Training-step benchmark (port of the JAX package's ``bench.run_bench``).
+
+    python -m action_conditioned_gans_tpu_torch bench --preset config1 \
+        --set train.batch_size=128 --set train.adam_moment_dtype=bfloat16
+
+One JSON line: the p50 / p90 per-step latency of ``make_multi_train_step``
+over three timed windows on stacked synthetic batches made on the device,
+frames per second, the time to the first finished step (kernel build and
+load included; it stands in for the JAX package's ``compile_s``) and the
+analytic FLOPs of one step against the H100's dense bf16 peak.
+
+Each window ends in a host read of one metric and ``torch.cuda.synchronize``,
+so it measures finished steps, not launches. The FLOPs are those of the conv
+and matmul operators of one step of the plain path at the same shapes,
+counted by ``torch.utils.flop_counter`` on meta tensors: the Hopper kernels
+are invisible to the counter, and the arithmetic is the same. The JAX bench
+counts its XLA-backend step the same way (``analytic_matmul_cost``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from action_conditioned_gans_tpu_torch.config import Config, resolve_device
+from action_conditioned_gans_tpu_torch.data import make_dataset
+from action_conditioned_gans_tpu_torch.train.loop import sync_device
+from action_conditioned_gans_tpu_torch.train.state import init_state, state_from_params
+from action_conditioned_gans_tpu_torch.train.step import make_multi_train_step, make_train_step
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+
+
+class _GlobalOnly:
+    """FlopCounterMode's module tracker, reduced to the one "Global" total:
+    the tracker's backward hooks do not support ``torch.autograd.grad``,
+    which the step differentiates with."""
+
+    parents = {"Global"}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def step_flop_counts(cfg: Config) -> Dict[str, int]:
+    """FLOPs of one fused G+D step of ``cfg`` (forward and backward) by
+    operator (``aten.convolution``, ``aten.convolution_backward``,
+    ``aten.mm``, ...), counted on meta tensors: no memory, no compute."""
+    from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
+
+    m, t = cfg.model, cfg.train
+    meta = torch.device("meta")
+    with meta:
+        gen, disc = Generator(m), Discriminator(m)
+    state = state_from_params(cfg, gen.state_dict(), disc.state_dict(), device=meta)
+    b, horizon, size = t.batch_size, max(t.rollout_length, 1), m.image_size
+    batch = {"frames": torch.zeros((b, horizon + 1, size, size, m.image_channels), device=meta),
+             "actions": torch.zeros((b, horizon, m.action_dim), device=meta)}
+    if m.state_dim:
+        batch["states"] = torch.zeros((b, horizon, m.state_dim), device=meta)
+    counter = FlopCounterMode(display=False)
+    counter.mod_tracker = _GlobalOnly()
+    with counter:
+        make_train_step(cfg, device=meta)(state, batch)
+    return {str(op): n for op, n in counter.get_flop_counts()["Global"].items()}
+
+
+def run_bench(cfg: Config, steps: int = 30, warmup: int = 5, device=None) -> Dict[str, object]:
+    """Benchmark ``cfg``'s training step on ``device`` (cuda unless another
+    device is given). ``warmup`` calls, one more window, then three timed
+    windows of ``max(steps // 3, 2)`` calls of ``steps_per_call`` steps."""
+    dev = resolve_device(device)
+    spc = max(cfg.train.steps_per_call, 1)
+    state = init_state(cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+    step_fn = make_multi_train_step(cfg, dev)
+    dataset = make_dataset(cfg, stack=spc, device=dev)
+
+    batch = dataset.batch_at(0)
+    sync_device(dev)
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    float(metrics["d_loss"])
+    sync_device(dev)
+    first_step_s = time.perf_counter() - t0
+
+    for i in range(1, warmup):
+        state, metrics = step_fn(state, dataset.batch_at(i))
+    k = min(4, steps)
+    cached = [dataset.batch_at(warmup + i) for i in range(k)]
+    sync_device(dev)
+
+    def window(n_calls: int) -> float:
+        """Seconds per step over ``n_calls`` calls, ending in a metric read."""
+        nonlocal state
+        t0 = time.perf_counter()
+        m = None
+        for i in range(n_calls):
+            state, m = step_fn(state, cached[i % k])
+        float(m["d_loss"])
+        sync_device(dev)
+        return (time.perf_counter() - t0) / (n_calls * spc)
+
+    window(max(2, steps // 4))
+    lat = np.array([window(max(steps // 3, 2)) for _ in range(3)])
+    p50 = float(np.percentile(lat, 50))
+    frames_per_step = cfg.train.batch_size * max(cfg.train.rollout_length, 1)
+    per_step = sum(step_flop_counts(cfg).values())
+    achieved = per_step / p50
+    return {
+        "config": cfg.name,
+        "image_size": cfg.model.image_size,
+        "batch_size": cfg.train.batch_size,
+        "rollout_length": cfg.train.rollout_length,
+        "steps_per_call": spc,
+        "num_chips": 1,
+        "p50_step_latency_ms": p50 * 1e3,
+        "p90_step_latency_ms": float(np.percentile(lat, 90)) * 1e3,
+        "frames_per_sec_per_chip": frames_per_step / p50,
+        "first_step_s": first_step_s,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
+        "step_tflops_analytic": per_step / 1e12,
+        "achieved_tflops_per_chip_analytic": achieved / 1e12,
+        "roofline_utilization_analytic": achieved / PEAK_BF16_FLOPS,
+    }

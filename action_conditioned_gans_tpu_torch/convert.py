@@ -7,7 +7,8 @@ logit sits at the top of its tree (``"logit_kernel"``), in both. Both keep
 the layouts (HWIO kernels, (F, 1) dense), so the conversion only renames and
 copies: a round trip is bit-exact. A JAX ``TrainState``'s ``g_params`` and
 ``d_params`` each cross with :func:`flax_to_state_dict` and back with
-:func:`state_dict_to_flax`.
+:func:`state_dict_to_flax`; a whole JAX ``TrainState``, Adam states
+included, crosses with :func:`train_state_from_jax`.
 """
 
 from __future__ import annotations
@@ -53,3 +54,62 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
         else:
             tree[name] = leaf
     return tree
+
+
+def _tensor_keep_dtype(a) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; numpy's bfloat16 (an
+    ml_dtypes extension type torch.from_numpy does not take) crosses as its
+    16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _find_adam(opt_state):
+    """The one optax ``ScaleByAdamState`` (count, mu, nu) inside an optax
+    chain's state, found by its fields (the port does not import optax)."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    children = opt_state.values() if isinstance(opt_state, Mapping) else (
+        opt_state if isinstance(opt_state, (tuple, list)) else ())
+    found = [a for a in (_find_adam(c) for c in children) if a is not None]
+    if len(found) > 1:
+        raise ValueError("the optimizer state holds more than one Adam state")
+    return found[0] if found else None
+
+
+def train_state_from_jax(cfg, jax_state_np, device=None):
+    """A JAX package ``TrainState`` with numpy leaves -> the port's
+    ``TrainState`` on ``device`` (cuda unless another device is given):
+    ``step``, both parameter trees (float32) and both optax Adam states,
+    ``count`` and ``mu`` / ``nu`` in their own dtype. Everything the port's
+    checkpoints hold crosses."""
+    from action_conditioned_gans_tpu_torch.config import resolve_device
+    from action_conditioned_gans_tpu_torch.train.state import AdamState, TrainState
+
+    if getattr(jax_state_np, "g_ema", None) is not None:
+        raise NotImplementedError("the JAX state carries an EMA tree; EMA is not ported yet")
+    dev = resolve_device(device)
+    want = cfg.train.adam_moment_dtype
+
+    def adam(opt_state) -> AdamState:
+        a = _find_adam(opt_state)
+        if a is None or not isinstance(a.mu, Mapping):
+            raise ValueError("no per-tensor optax Adam state found (flatten_optimizer is not "
+                             "ported)")
+        moments = []
+        for tree in (a.mu, a.nu):
+            sd = {k.replace("/", "."): _tensor_keep_dtype(v).to(dev)
+                  for k, v in flatten_flax(tree).items()}
+            bad = {str(v.dtype) for v in sd.values()} - {f"torch.{want}"}
+            if bad:
+                raise ValueError(f"Adam moments in {sorted(bad)}, the config's "
+                                 f"train.adam_moment_dtype is {want!r}")
+            moments.append(sd)
+        return AdamState(count=int(np.asarray(a.count)), mu=moments[0], nu=moments[1])
+
+    params = lambda tree: {k: v.to(dev) for k, v in flax_to_state_dict(tree).items()}  # noqa: E731
+    return TrainState(step=int(np.asarray(jax_state_np.step)),
+                      g_params=params(jax_state_np.g_params), d_params=params(jax_state_np.d_params),
+                      g_opt=adam(jax_state_np.g_opt), d_opt=adam(jax_state_np.d_opt))

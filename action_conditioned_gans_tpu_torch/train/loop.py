@@ -1,0 +1,220 @@
+"""The training loop (port of the JAX package's ``train/loop.py``).
+
+Each iteration takes one stacked synthetic batch made on the device and runs
+``steps_per_call`` fused G+D steps on it; metrics are read back only at log
+boundaries. Checkpoints every ``checkpoint_every`` steps (the newest
+``checkpoint_keep`` kept), held-out rollouts every ``sample_every``, and on
+SIGTERM a checkpoint and a clean exit. A run resumes from the latest
+checkpoint at the batch an uninterrupted run would have seen next: batch i is
+a pure function of (seed, i), and the loop asks for batch ``start // k``.
+
+The loop runs on one device, ``cuda`` unless another is given; a mesh of more
+than one device waits on ROADMAP Queue 1 item 6.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import signal
+from typing import Optional
+
+import torch
+
+from action_conditioned_gans_tpu_torch.config import Config, resolve_device
+from action_conditioned_gans_tpu_torch.data import make_dataset
+from action_conditioned_gans_tpu_torch.train.state import (
+    TrainState,
+    init_state,
+    lr_value,
+    param_count,
+    restore_state,
+    state_to_host,
+)
+from action_conditioned_gans_tpu_torch.train.step import make_multi_train_step
+from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
+from action_conditioned_gans_tpu_torch.utils.metrics import MetricWriter
+
+
+def check_single_device(cfg: Config) -> None:
+    """Raise for a mesh of more than one device; ``data=-1`` ("all devices")
+    runs on the one device the loop is given."""
+    if cfg.mesh.data > 1 or cfg.mesh.model > 1:
+        raise NotImplementedError(
+            f"mesh data={cfg.mesh.data} model={cfg.mesh.model}: training over more than "
+            "one device is not ported yet (ROADMAP Queue 1 item 6)"
+        )
+
+
+def crossed(before: int, after: int, every: int) -> bool:
+    """Whether a call that took the step count from ``before`` to ``after``
+    passed a multiple of ``every``."""
+    return every > 0 and (after // every) > (before // every)
+
+
+def sync_device(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(
+    cfg: Config,
+    max_steps: Optional[int] = None,
+    resume: bool = True,
+    workdir: Optional[str] = None,
+    profile_steps: int = 0,
+    device=None,
+) -> TrainState:
+    """Train ``cfg`` to ``max_steps`` (``train.total_steps`` when None) in
+    ``workdir`` (``cfg.workdir`` when None), resuming from its latest
+    checkpoint unless ``resume`` is False. ``profile_steps`` > 0 writes a
+    ``torch.profiler`` chrome trace of that many steps, after a warm-up, to
+    ``<workdir>/profile``. Returns the final state."""
+    check_single_device(cfg)
+    dev = resolve_device(device)
+    workdir = workdir or cfg.workdir
+    os.makedirs(workdir, exist_ok=True)
+    t = cfg.train
+    total = max_steps if max_steps is not None else t.total_steps
+
+    state = init_state(cfg, torch.Generator().manual_seed(t.seed), device=dev)
+    step_fn = make_multi_train_step(cfg, dev)
+    g_n, d_n = param_count(state)
+    print(f"[acgan] {cfg.name}: G params {g_n:,} | D params {d_n:,} | device {dev}", flush=True)
+
+    ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"), keep=t.checkpoint_keep)
+    start = 0
+    if resume and ckpt.latest_step() is not None:
+        state = restore_state(cfg, ckpt, template=state)
+        start = state.step
+        print(f"[acgan] resumed from checkpoint at step {start}", flush=True)
+
+    k = max(t.steps_per_call, 1)
+    dataset = make_dataset(cfg, stack=k, start_call=start // k, device=dev)
+    writer = MetricWriter(os.path.join(workdir, "tb"))
+
+    # SIGTERM (preemption) only sets a flag; the loop checkpoints and exits
+    # after the call in flight.
+    preempted = {"flag": False}
+
+    def _on_sigterm(signum, frame):
+        preempted["flag"] = True
+
+    prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+
+    # One fixed held-out batch, seeded apart from the training stream, so the
+    # eval scalars move only with the model.
+    sample_fn = held_out = None
+
+    def write_samples(step_idx: int) -> None:
+        nonlocal sample_fn, held_out
+        from action_conditioned_gans_tpu_torch.train.sample import (
+            eval_metrics,
+            held_out_batches,
+            make_rollout_fn,
+        )
+
+        if sample_fn is None:
+            sample_fn = make_rollout_fn(cfg, dev)
+            held_out = next(held_out_batches(cfg, min(8, t.batch_size), max(t.rollout_length, 1),
+                                             t.seed + 7919, device=dev))
+        preds = sample_fn(state.g_params, held_out)
+        writer.write(step_idx, eval_metrics(preds, held_out["frames"][:, 1:]))
+        writer.write_images(step_idx, "pred_final_frame", preds[:, -1].float().cpu().numpy())
+        writer.write_images(step_idx, "gt_final_frame",
+                            held_out["frames"][:, -1].float().cpu().numpy())
+
+    # The trace window opens and closes at call boundaries, after a warm-up of
+    # three calls, clamped so that a short run still traces one call.
+    profile_start = -1
+    if profile_steps > 0 and total > start:
+        last_call_top = start + ((total - start - 1) // k) * k
+        warmup = 3 * k
+        if start + warmup > last_call_top:
+            warmup = last_call_top - start
+            print(f"[acgan] profile warmup clamped to {warmup} step(s): the run is too short "
+                  f"for the 3x{k}-step warmup; expect warm-up noise in the trace (raise "
+                  "--steps or lower train.steps_per_call for a clean window)", flush=True)
+        profile_start = start + warmup
+    profile_stop = -1
+    profiler = None
+    tracedir = os.path.join(workdir, "profile")
+
+    def stop_trace(note: str = "") -> None:
+        nonlocal profiler
+        sync_device(dev)
+        profiler.stop()
+        path = os.path.join(tracedir, f"trace_step{done}.json")
+        profiler.export_chrome_trace(path)
+        profiler = None
+        print(f"[acgan] trace captured{note} -> {path}", flush=True)
+
+    schedule_on = not (t.warmup_steps == 0 and t.lr_schedule == "constant")
+
+    def lr_metrics(step_done: int) -> dict:
+        """The learning rates of the call's last step, when a schedule is on."""
+        if not schedule_on:
+            return {}
+        return {"g_lr": lr_value(t, t.g_lr, step_done - 1),
+                "d_lr": lr_value(t, t.d_lr, step_done - 1)}
+
+    call = start // k
+    done = start
+    try:
+        while done < total:
+            if profile_start >= 0 and done >= profile_start:
+                os.makedirs(tracedir, exist_ok=True)
+                print(f"[acgan] capturing {profile_steps}-step trace -> {tracedir}", flush=True)
+                sync_device(dev)
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if dev.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=activities)
+                profiler.start()
+                profile_start, profile_stop = -1, done + profile_steps
+            if profile_stop >= 0 and done >= profile_stop:
+                stop_trace()
+                profile_stop = -1
+            batch = dataset.batch_at(call)
+            state, metrics = step_fn(state, batch)
+            before, done = done, done + k
+            call += 1
+            if crossed(before, done, t.log_every) or before == start:
+                values = {k_: float(v) for k_, v in metrics.items()}
+                if t.debug_nans and not all(math.isfinite(v) for v in values.values()):
+                    raise FloatingPointError(f"non-finite metrics at step {done}: {values}")
+                writer.write(done, {**values, **lr_metrics(done)})
+            writer.tick()
+            if crossed(before, done, t.checkpoint_every):
+                ckpt.save(done, state_to_host(state, cfg))
+            if crossed(before, done, t.sample_every):
+                write_samples(done)
+            if preempted["flag"]:
+                print(f"[acgan] SIGTERM received: checkpointing at step {done} and exiting",
+                      flush=True)
+                # A step just saved on a checkpoint_every boundary is not saved
+                # again: the save returns False.
+                ckpt.save(done, state_to_host(state, cfg), force=True)
+                break
+        total = done
+    finally:
+        signal.signal(signal.SIGTERM, prev_handler)
+        writer.close()
+        if profiler is not None:
+            # The window can still be open at exit (profile_stop past the end,
+            # SIGTERM, an error): flush it rather than drop it.
+            stop_trace(" (flushed at loop exit)")
+
+    if total > start and ckpt.latest_step() != total:
+        ckpt.save(total, state_to_host(state, cfg), force=True)
+    ckpt.wait()
+    p50 = writer.p50_latency()
+    if p50:
+        fps = writer.frames_per_sec(t.batch_size * max(t.rollout_length, 1) * k)
+        # Ticks follow the host's calls, which return before the device is
+        # done: a dispatch cadence, not a device step time.
+        print(f"[acgan] p50 dispatch cadence {p50 * 1e3:.2f} ms ({k} step(s)/call) | "
+              f"~{fps:.1f} frames/sec/chip (dispatch-cadence estimate; use `bench` for "
+              "timed windows that end in a synchronize)", flush=True)
+    return state

@@ -13,8 +13,9 @@ and moment tensors in place (one copy of each, not two).
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -230,3 +231,61 @@ def init_state(cfg: Config, generator: Optional[torch.Generator] = None, device=
 def param_count(state: TrainState) -> Tuple[int, int]:
     return (sum(p.numel() for p in state.g_params.values()),
             sum(p.numel() for p in state.d_params.values()))
+
+
+# -- checkpoints -------------------------------------------------------------------
+
+
+def state_tree(state: TrainState, cfg: Optional[Config] = None) -> Dict[str, Any]:
+    """The state as the nested dict a checkpoint holds, over the state's own
+    tensors (no copy): ``step``, ``g_params`` / ``d_params`` (float32),
+    ``g_opt`` / ``d_opt`` with their ``count`` and their ``mu`` / ``nu`` in
+    their own dtype, and, with ``cfg``, the config as JSON."""
+    tree: Dict[str, Any] = {"step": int(state.step), "g_params": dict(state.g_params),
+                            "d_params": dict(state.d_params)}
+    for name in ("g_opt", "d_opt"):
+        opt = getattr(state, name)
+        tree[name] = {"count": int(opt.count), "mu": dict(opt.mu), "nu": dict(opt.nu)}
+    if cfg is not None:
+        tree["config"] = json.dumps(dataclasses.asdict(cfg))
+    return tree
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    return tree
+
+
+def state_to_host(state: TrainState, cfg: Optional[Config] = None) -> Dict[str, Any]:
+    """:func:`state_tree` copied to the CPU (the copy waits for the device)."""
+    return _map_tensors(state_tree(state, cfg),
+                        lambda t: t.detach().to("cpu", copy=True))
+
+
+def state_to_device(tree: Mapping[str, Any], device=None) -> TrainState:
+    """A :func:`state_tree` dict -> a TrainState on ``device`` (cuda unless
+    another device is given)."""
+    dev = resolve_device(device)
+    move = lambda params: {k: v.to(dev) for k, v in params.items()}  # noqa: E731
+
+    def opt(o):
+        return AdamState(count=int(o["count"]), mu=move(o["mu"]), nu=move(o["nu"]))
+
+    return TrainState(step=int(tree["step"]), g_params=move(tree["g_params"]),
+                      d_params=move(tree["d_params"]), g_opt=opt(tree["g_opt"]),
+                      d_opt=opt(tree["d_opt"]))
+
+
+def restore_state(cfg: Config, mgr, step: Optional[int] = None,
+                  template: Optional[TrainState] = None) -> TrainState:
+    """The checkpoint at ``step`` (the latest when None) of ``mgr`` (a
+    ``utils.checkpoint.CheckpointManager``), shaped and typed as ``template``
+    (``init_state(cfg)`` when None) and on its device. EMA is refused by
+    ``check_ported_train``, so there is no EMA tree to reconcile yet (the JAX
+    package's ``train/state.py:213-248``; ROADMAP Queue 1 item 5)."""
+    template = template if template is not None else init_state(cfg)
+    device = next(iter(template.g_params.values())).device
+    return state_to_device(mgr.restore(state_tree(template, cfg), step=step), device)

@@ -152,3 +152,26 @@ def make_train_step(cfg: Config, device=None):
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step
+
+
+def make_multi_train_step(cfg: Config, device=None):
+    """k = ``cfg.train.steps_per_call`` fused steps a call, in sequence, over
+    a stacked batch whose leaves have a leading (k, ...) axis; returns the
+    LAST step's metrics (the JAX package's ``lax.scan`` of the step). With
+    k <= 1 this is the single step over an unstacked batch."""
+    step = make_train_step(cfg, device)
+    k = cfg.train.steps_per_call
+    if k <= 1:
+        return step
+
+    def multi(state: TrainState, batches):
+        for key, leaf in batches.items():
+            if leaf.shape[0] != k:
+                raise ValueError(f"batch leaf {key!r} has {leaf.shape[0]} steps on its leading "
+                                 f"axis, want steps_per_call={k}")
+        metrics = None
+        for i in range(k):
+            state, metrics = step(state, {key: leaf[i] for key, leaf in batches.items()})
+        return state, metrics
+
+    return multi

@@ -104,10 +104,32 @@ Phases, each of which fails the run (non-zero exit, no final line):
     how many of its clusters the card holds at once), each checked against
     its plain version in float32 on the same inputs: dx within 1e-2 abs +
     1e-2 rel, dscale and dbias within 1e-4 of their largest magnitude +
-    1e-4 rel. Then a ``kernels`` JSON line (per kernel: launches summed over
-    the four main paths, max |err|, kernel, plain, bound and library times;
-    kernel 4's over the config1 step's calls, and its config3 step's sums
-    beside them), then the final line ``{"ok": true, "device": {...}}``.
+    1e-4 rel.
+12. The training loop through the ``train`` subcommand, in this process:
+    config1 at B=128, bfloat16 moments, 16 steps a call, 64 steps, logs
+    every 16, checkpoints and held-out rollouts every 32, 2 kept. Counts set
+    to 0 just before and read just after: EXPECTED["config1 step"] x 64 plus
+    EXPECTED["config1 serving"] for each held-out rollout's generator call
+    (one at step 32, one at 64, B=8). Every metric line finite, checkpoints
+    {32, 64} on disk, every batch a cuda tensor. The same command to 96
+    resumes at 64; its parameters, moments and Adam counts are held
+    bit for bit against an uninterrupted 96-step run (cuDNN in its
+    deterministic algorithms for the three runs). ``train`` in a process of
+    its own, SIGTERM after its first metric line: exit 0 and a checkpoint
+    at the step it stopped at. The uninterrupted run traces steps 48-64
+    (``--profile-steps 16``): its chrome trace must hold device kernels.
+    Two more 96-step runs in cuDNN's default algorithms are compared with
+    each other and the result printed (not checked).
+    Then the synthetic data's ms per call (16 x 128 clips), one checkpoint
+    save's ms (to the host, then torch.save), the loop's p50 dispatch
+    cadence and the ``bench`` JSON line (config1 as above, 0 < roofline
+    share <= 1), and bench's p50 with cudnn.deterministic on, each beside
+    the card's name and power limit.
+
+Then a ``kernels`` JSON line (per kernel: launches summed over the five
+main paths, max |err|, kernel, plain, bound and library times; kernel 4's
+over the config1 step's calls, and its config3 step's sums beside them),
+then the final line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -116,6 +138,7 @@ import dataclasses
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -540,20 +563,28 @@ def read_launches():
 def check_counts(path, launches, times):
     """The launch and route counts of ``times`` generator calls or training
     steps on ``path`` against EXPECTED."""
+    check_runs(path, launches, {path: times})
+
+
+def check_runs(label, launches, runs):
+    """The launch and route counts of a run made of ``runs`` ({EXPECTED path:
+    generator calls or training steps}) against the sum of EXPECTED over it."""
     from action_conditioned_gans_tpu_torch.ops import api
     from action_conditioned_gans_tpu_torch.ops.kernels import conv
 
-    per, by_mainloop, (fused, split) = EXPECTED[path]
-    say(f"main path {path}: launches {launches}, routes {api.ROUTES} over {times} "
-        f"{'steps' if 'step' in path else 'generator calls'}")
+    say(f"main path {label}: launches {launches}, routes {api.ROUTES} over "
+        + ", ".join(f"{n} {'steps' if 'step' in p else 'generator calls'} of {p}"
+                    for p, n in runs.items()))
     for name in KERNEL_INFO:
-        want = per[name] * times
-        check(launches[name] == want, f"{path}: {name} launched {launches[name]} times, want {want}")
+        want = sum(EXPECTED[p][0][name] * n for p, n in runs.items())
+        check(launches[name] == want, f"{label}: {name} launched {launches[name]} times, want {want}")
     by = {k: launches[k] for k in conv.LAUNCHES_BY_MAINLOOP}
-    want = {k: by_mainloop.get(k.split(":")[0], {}).get(k.split(":")[1], 0) * times for k in by}
-    check(by == want, f"{path}: kernels 1-2 by mainloop {by}, want {want}")
-    want = {"fused": fused * times, "split": split * times}
-    check(api.ROUTES == want, f"{path}: routes {api.ROUTES}, want {want}")
+    want = {k: sum(EXPECTED[p][1].get(k.split(":")[0], {}).get(k.split(":")[1], 0) * n
+                   for p, n in runs.items()) for k in by}
+    check(by == want, f"{label}: kernels 1-2 by mainloop {by}, want {want}")
+    want = {route: sum(EXPECTED[p][2][i] * n for p, n in runs.items())
+            for i, route in enumerate(("fused", "split"))}
+    check(api.ROUTES == want, f"{label}: routes {api.ROUTES}, want {want}")
 
 
 def phase_serving(predictor, path, batch, horizon, roll_batch, timed=20):
@@ -1355,6 +1386,250 @@ def phase_train_norm_parity(norm_calls, totals):
             totals["max_abs_err"] = max(totals["max_abs_err"], err)
 
 
+# -- phase 12: the training loop, its checkpoints, resume, SIGTERM and bench ----------
+
+# The `train` subcommand as phase 12 drives it: config1 at full width, B=128,
+# bfloat16 moments, 16 steps a call.
+LOOP_ARGS = ["--preset", "config1", "--set", "train.batch_size=128",
+             "--set", "train.adam_moment_dtype=bfloat16", "--set", "train.steps_per_call=16",
+             "--set", "train.log_every=16", "--set", "train.checkpoint_every=32",
+             "--set", "train.sample_every=32", "--set", "train.checkpoint_keep=2"]
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process; its standard output, also printed."""
+    import contextlib
+
+    from action_conditioned_gans_tpu_torch import cli
+
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return "".join(tee.parts)
+
+
+def metric_lines(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def checkpoint_steps(workdir):
+    return sorted(int(n) for n in os.listdir(os.path.join(workdir, "checkpoints")) if n.isdigit())
+
+
+def final_params(workdir, step):
+    """Parameters and moments of the checkpoint at ``step``, on the host."""
+    state = torch.load(os.path.join(workdir, "checkpoints", str(step), "state.pt"),
+                       weights_only=True)
+    flat = {}
+    for name in ("g_params", "d_params"):
+        flat.update({f"{name}/{k}": v for k, v in state[name].items()})
+    for name in ("g_opt", "d_opt"):
+        for moments in ("mu", "nu"):
+            flat.update({f"{name}/{moments}/{k}": v for k, v in state[name][moments].items()})
+        flat[f"{name}/count"] = torch.tensor(state[name]["count"])
+    return flat
+
+
+def compare_states(a, b):
+    """(bit-identical, max |a - b| over every parameter and moment, the key
+    of the largest)."""
+    check(a.keys() == b.keys(), "the two checkpoints hold different keys")
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    diffs = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a}
+    worst = max(diffs, key=diffs.get)
+    return same, diffs[worst], worst
+
+
+def sigterm_run(workdir):
+    """``train`` in a process of its own on the card, SIGTERM after its first
+    metric line: it must exit 0 with a checkpoint at the step it stopped at."""
+    cmd = [sys.executable, "-m", "action_conditioned_gans_tpu_torch", "train", *LOOP_ARGS,
+           "--workdir", workdir, "--steps", "100000"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines, first_metric = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("{"):
+                first_metric.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        check(first_metric.wait(timeout=300), "the train process wrote no metric line: "
+              + "".join(lines[-20:]))
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        exit_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=60)
+    out = "".join(lines)
+    check(rc == 0, f"the train process exited {rc} after SIGTERM: {out[-2000:]}")
+    stopped = [int(line.split("at step ")[1].split()[0]) for line in out.splitlines()
+               if "SIGTERM received" in line]
+    check(len(stopped) == 1, f"no SIGTERM line in the train process's output: {out[-2000:]}")
+    check(stopped[0] in checkpoint_steps(workdir),
+          f"no checkpoint at the SIGTERM step {stopped[0]}: {checkpoint_steps(workdir)}")
+    return stopped[0], exit_s
+
+
+def phase_loop(smi):
+    """Phase 12: the `train` subcommand on the card (counts set to 0 just
+    before the first run and read just after), its checkpoints, an exact
+    resume against an uninterrupted run, SIGTERM in a process of its own,
+    the data's and a save's times, and the `bench` line."""
+    import re
+    import tempfile
+
+    from action_conditioned_gans_tpu_torch.bench import run_bench
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.data import make_dataset
+    from action_conditioned_gans_tpu_torch.data.synthetic import SyntheticClips
+    from action_conditioned_gans_tpu_torch.ops.kernels import build
+    from action_conditioned_gans_tpu_torch.train.state import init_state, state_to_host
+    from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    overrides = [LOOP_ARGS[i + 1] for i, a in enumerate(LOOP_ARGS) if a == "--set"]
+    cfg = apply_overrides(get_preset("config1"), overrides)
+    os.makedirs(os.path.dirname(build.BUILD_DIR), exist_ok=True)
+    devices, real_batch_at = set(), SyntheticClips.batch_at
+
+    def batch_at(self, index):
+        out = real_batch_at(self, index)
+        devices.update(v.device.type for v in out.values())
+        return out
+
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="loop-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
+        first, whole = os.path.join(tmp, "first"), os.path.join(tmp, "whole")
+        # Exact resume: cuDNN's backward convolutions in their deterministic
+        # algorithms for the three runs compared (the port's kernels are
+        # deterministic: no atomics).
+        torch.backends.cudnn.deterministic = True
+        SyntheticClips.batch_at = batch_at
+        try:
+            reset_launches()
+            out = run_cli(["train", *LOOP_ARGS, "--workdir", first, "--steps", "64"])
+            launches = read_launches()
+        finally:
+            SyntheticClips.batch_at = real_batch_at
+        lines = metric_lines(out)
+        evals = [r for r in lines if "eval_l2" in r]
+        check([r["step"] for r in lines] == [16, 32, 32, 48, 64, 64],
+              f"metric lines at steps {[r['step'] for r in lines]}")
+        check(all(np.isfinite(v) for r in lines for v in r.values()), "a non-finite metric line")
+        # 64 steps, and a held-out rollout of rollout_length (1) generator
+        # calls at B=8 at each sample_every boundary (32, 64).
+        check_runs("config1 train loop", launches, {"config1 step": 64, "config1 serving": len(evals)})
+        check(checkpoint_steps(first) == [32, 64], f"checkpoints {checkpoint_steps(first)}")
+        check(devices == {"cuda"}, f"the loop's batches were on {devices}")
+        cadence = re.search(r"p50 dispatch cadence ([0-9.]+) ms", out)
+        check(cadence is not None, "the train run printed no p50 cadence")
+
+        resumed = run_cli(["train", *LOOP_ARGS, "--workdir", first, "--steps", "96"])
+        check("resumed from checkpoint at step 64" in resumed, "the second run did not resume at 64")
+        # The uninterrupted run also traces steps 48-64 (--profile-steps): the
+        # profiler reads the card's timeline and changes no value.
+        run_cli(["train", *LOOP_ARGS, "--workdir", whole, "--steps", "96", "--profile-steps", "16"])
+        torch.backends.cudnn.deterministic = deterministic
+        traces = os.listdir(os.path.join(whole, "profile"))
+        check(len(traces) == 1, f"--profile-steps wrote {traces}")
+        with open(os.path.join(whole, "profile", traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        say(f"profile: {traces[0]} holds {kernels} device kernel events of steps 48-64")
+        check(kernels > 0, "the loop's trace holds no device kernel")
+        same, max_diff, where = compare_states(final_params(first, 96), final_params(whole, 96))
+        say(f"resume: 64 + 32 steps against 96 uninterrupted, cudnn.deterministic=True: "
+            f"bit-identical {same}, max |d| {max_diff:.3e} at {where}")
+        check(same, f"the resumed run differs from the uninterrupted one: {max_diff:.3e} at {where}")
+
+        # The same comparison without cudnn.deterministic: two uninterrupted
+        # runs in cuDNN's default algorithms (a finding, not a check).
+        for name in ("default_a", "default_b"):
+            run_cli(["train", *LOOP_ARGS, "--workdir", os.path.join(tmp, name), "--steps", "96"])
+        same_default, diff_default, where_default = compare_states(
+            final_params(os.path.join(tmp, "default_a"), 96),
+            final_params(os.path.join(tmp, "default_b"), 96))
+        say(f"two 96-step runs in cuDNN's default algorithms: bit-identical {same_default}, "
+            f"max |d| {diff_default:.3e} at {where_default}")
+
+        stopped, exit_s = sigterm_run(os.path.join(tmp, "sigterm"))
+        say(f"sigterm: exit 0, checkpoint at step {stopped}, {exit_s:.2f} s from the signal "
+            f"to the exit ({smi})")
+
+        # The data: one call makes k*B clips on the card.
+        dataset = make_dataset(cfg, stack=cfg.train.steps_per_call, device="cuda")
+        dataset.batch_at(0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(1, 6):
+            dataset.batch_at(i)
+        end.record()
+        torch.cuda.synchronize()
+        data_ms = (time.perf_counter() - t0) / 5 * 1e3
+        data_device_ms = start.elapsed_time(end) / 5
+        # One synchronous save of the config1 state: device -> host, torch.save.
+        state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+        mgr = CheckpointManager(os.path.join(tmp, "save"), keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = state_to_host(state, cfg)
+        t1 = time.perf_counter()
+        mgr.save(1, host)
+        t2 = time.perf_counter()
+        size_mb = os.path.getsize(os.path.join(tmp, "save", "1", "state.pt")) / 1e6
+    loop = dict(data_ms_per_call=data_ms, data_device_ms_per_call=data_device_ms,
+                clips_per_call=cfg.train.batch_size * cfg.train.steps_per_call,
+                save_ms=(t2 - t0) * 1e3, save_to_host_ms=(t1 - t0) * 1e3,
+                save_write_ms=(t2 - t1) * 1e3, checkpoint_mb=size_mb,
+                p50_cadence_ms_per_call=float(cadence.group(1)),
+                p50_cadence_ms_per_step=float(cadence.group(1)) / cfg.train.steps_per_call,
+                resume_bit_identical=same, default_cudnn_runs_bit_identical=same_default,
+                sigterm_stop_step=stopped, card=smi)
+    say("loop " + json.dumps(loop))
+
+    bench = run_bench(cfg, device="cuda")
+    say("bench " + json.dumps(bench) + f" ({smi})")
+    torch.backends.cudnn.deterministic = True
+    try:
+        exact = run_bench(cfg, steps=12, device="cuda")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    say(f"bench with cudnn.deterministic=True (the resume comparison's setting): p50 "
+        f"{exact['p50_step_latency_ms']:.3f} ms, p90 {exact['p90_step_latency_ms']:.3f} ms "
+        f"a step ({smi})")
+    check(0 < bench["roofline_utilization_analytic"] <= 1, "bench roofline share outside (0, 1]")
+    check(bench["device"] == torch.cuda.get_device_name(0), "bench names another device")
+    say(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1436,6 +1711,7 @@ def main() -> int:
     config3 = phase_gn_bwd_times(calls3, "config3 step")
     totals["gn_act_bwd"]["max_abs_err"] = max(totals["gn_act_bwd"]["max_abs_err"],
                                               config3["max_abs_err"])
+    launches["config1 train loop"] = phase_loop(smi)
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 

@@ -35,9 +35,11 @@ def test_the_scan_sees_the_whole_port():
     assert "action_conditioned_gans_tpu_torch/ops/kernels/conv.py" in rel
     for module in ("ops/kernels/gn_bwd.py", "models/discriminator.py", "train/losses.py",
                    "train/state.py", "train/rollout.py", "train/step.py",
-                   "ops/kernels/norm_act.py", "ops/envelope.py"):
+                   "ops/kernels/norm_act.py", "ops/envelope.py", "data/synthetic.py",
+                   "data/pipeline.py", "utils/checkpoint.py", "utils/metrics.py",
+                   "train/loop.py", "train/sample.py", "bench.py"):
         assert f"action_conditioned_gans_tpu_torch/{module}" in rel
-    assert len(rel) >= 24
+    assert len(rel) >= 32
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
