@@ -6,15 +6,18 @@
 One JSON line: the p50 / p90 per-step latency of ``make_multi_train_step``
 over three timed windows on stacked synthetic batches made on the device,
 frames per second, the time to the first finished step (kernel build and
-load included; it stands in for the JAX package's ``compile_s``) and the
-analytic FLOPs of one step against the H100's dense bf16 peak.
+load included; it stands in for the JAX package's ``compile_s``), the
+analytic FLOPs of one step against the H100's dense bf16 peak, and the peak
+memory the run allocated on the card.
 
 Each window ends in a host read of one metric and ``torch.cuda.synchronize``,
 so it measures finished steps, not launches. The FLOPs are those of the conv
 and matmul operators of one step of the plain path at the same shapes,
 counted by ``torch.utils.flop_counter`` on meta tensors: the Hopper kernels
 are invisible to the counter, and the arithmetic is the same. The JAX bench
-counts its XLA-backend step the same way (``analytic_matmul_cost``).
+counts its XLA-backend step the same way (``analytic_matmul_cost``). With
+``remat_rollout`` the count includes the generator forward that the backward
+recomputes (``analytic_flops_count_remat_recompute`` in the line).
 """
 
 from __future__ import annotations
@@ -77,6 +80,8 @@ def run_bench(cfg: Config, steps: int = 30, warmup: int = 5, device=None) -> Dic
     device is given). ``warmup`` calls, one more window, then three timed
     windows of ``max(steps // 3, 2)`` calls of ``steps_per_call`` steps."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     spc = max(cfg.train.steps_per_call, 1)
     state = init_state(cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
     step_fn = make_multi_train_step(cfg, dev)
@@ -128,4 +133,8 @@ def run_bench(cfg: Config, steps: int = 30, warmup: int = 5, device=None) -> Dic
         "step_tflops_analytic": per_step / 1e12,
         "achieved_tflops_per_chip_analytic": achieved / 1e12,
         "roofline_utilization_analytic": achieved / PEAK_BF16_FLOPS,
+        "analytic_flops_count_remat_recompute": bool(cfg.train.remat_rollout),
+        # The most memory the run held on the card (None on the CPU).
+        "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                           if dev.type == "cuda" else None),
     }

@@ -233,16 +233,11 @@ class TrainConfig:
 
 def check_ported_train(cfg: "Config") -> None:
     """Raise, where a train step is built, for a training knob the port's
-    train step does not run yet."""
+    train step does not run yet: the R1 penalty (a double backward through
+    the fused conv blocks' autograd Functions) and batch norm."""
     t, m = cfg.train, cfg.model
     unported = {
-        "train.scheduled_sampling": t.scheduled_sampling,
-        "train.d_augment": bool(t.d_augment),
         "train.r1_weight > 0": t.r1_weight > 0,
-        "train.disc_microbatch > 0": t.disc_microbatch > 0,
-        "train.rollout_time_chunk > 0": t.rollout_time_chunk > 0,
-        "train.remat_rollout": t.remat_rollout,
-        "train.ema_decay > 0": t.ema_decay > 0,
         'model.norm="batch"': m.norm == "batch",
     }
     for name, on in unported.items():

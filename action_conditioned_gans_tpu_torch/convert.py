@@ -82,14 +82,12 @@ def _find_adam(opt_state):
 def train_state_from_jax(cfg, jax_state_np, device=None):
     """A JAX package ``TrainState`` with numpy leaves -> the port's
     ``TrainState`` on ``device`` (cuda unless another device is given):
-    ``step``, both parameter trees (float32) and both optax Adam states,
-    ``count`` and ``mu`` / ``nu`` in their own dtype. Everything the port's
-    checkpoints hold crosses."""
+    ``step``, both parameter trees (float32), both optax Adam states,
+    ``count`` and ``mu`` / ``nu`` in their own dtype, and the EMA tree when
+    the state has one. Everything the port's checkpoints hold crosses."""
     from action_conditioned_gans_tpu_torch.config import resolve_device
     from action_conditioned_gans_tpu_torch.train.state import AdamState, TrainState
 
-    if getattr(jax_state_np, "g_ema", None) is not None:
-        raise NotImplementedError("the JAX state carries an EMA tree; EMA is not ported yet")
     dev = resolve_device(device)
     want = cfg.train.adam_moment_dtype
 
@@ -110,6 +108,8 @@ def train_state_from_jax(cfg, jax_state_np, device=None):
         return AdamState(count=int(np.asarray(a.count)), mu=moments[0], nu=moments[1])
 
     params = lambda tree: {k: v.to(dev) for k, v in flax_to_state_dict(tree).items()}  # noqa: E731
+    g_ema = getattr(jax_state_np, "g_ema", None)
     return TrainState(step=int(np.asarray(jax_state_np.step)),
                       g_params=params(jax_state_np.g_params), d_params=params(jax_state_np.d_params),
-                      g_opt=adam(jax_state_np.g_opt), d_opt=adam(jax_state_np.d_opt))
+                      g_opt=adam(jax_state_np.g_opt), d_opt=adam(jax_state_np.d_opt),
+                      g_ema=None if g_ema is None else params(g_ema))

@@ -79,7 +79,9 @@ def train(
     total = max_steps if max_steps is not None else t.total_steps
 
     state = init_state(cfg, torch.Generator().manual_seed(t.seed), device=dev)
-    step_fn = make_multi_train_step(cfg, dev)
+    # The step's draws come from seed + 1 and the step number: the key the
+    # JAX loop passes (PRNGKey(seed + 1), folded with the step).
+    step_fn = make_multi_train_step(cfg, dev, seed=t.seed + 1)
     g_n, d_n = param_count(state)
     print(f"[acgan] {cfg.name}: G params {g_n:,} | D params {d_n:,} | device {dev}", flush=True)
 
@@ -120,7 +122,15 @@ def train(
             held_out = next(held_out_batches(cfg, min(8, t.batch_size), max(t.rollout_length, 1),
                                              t.seed + 7919, device=dev))
         preds = sample_fn(state.g_params, held_out)
-        writer.write(step_idx, eval_metrics(preds, held_out["frames"][:, 1:]))
+        em = eval_metrics(preds, held_out["frames"][:, 1:])
+        if state.g_ema is not None:
+            # The EMA weights too: the set a served model would use.
+            ema_preds = sample_fn(state.g_ema, held_out)
+            em.update({f"{k}_ema": v
+                       for k, v in eval_metrics(ema_preds, held_out["frames"][:, 1:]).items()})
+            writer.write_images(step_idx, "pred_final_frame_ema",
+                                ema_preds[:, -1].float().cpu().numpy())
+        writer.write(step_idx, em)
         writer.write_images(step_idx, "pred_final_frame", preds[:, -1].float().cpu().numpy())
         writer.write_images(step_idx, "gt_final_frame",
                             held_out["frames"][:, -1].float().cpu().numpy())

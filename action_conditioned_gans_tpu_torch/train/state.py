@@ -7,7 +7,9 @@ float32, on the training device. The optimizer is Adam written here with
 moments for float32 parameters: optax's ``scale_by_adam`` (and the JAX
 package's ``scale_by_adam_moment_dtype``) with global-norm clipping before
 it. Unlike the JAX state, which is immutable, a step updates the parameter
-and moment tensors in place (one copy of each, not two).
+and moment tensors in place (one copy of each, not two). With
+``train.ema_decay`` > 0 the state also holds ``g_ema``, an exponential
+moving average of G's parameters (float32), updated after each G step.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import json
 import math
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from action_conditioned_gans_tpu_torch.config import Config, resolve_device
@@ -40,6 +43,7 @@ class TrainState:
     d_params: Params
     g_opt: AdamState
     d_opt: AdamState
+    g_ema: Optional[Params] = None
 
 
 # -- learning-rate schedules ---------------------------------------------------
@@ -209,13 +213,33 @@ def state_from_params(
     device=None,
 ) -> TrainState:
     """A step-0 TrainState over copies of the given parameters (float32, on
-    ``device``: cuda unless another device is given), with fresh Adam states."""
+    ``device``: cuda unless another device is given), with fresh Adam states
+    and, with ``train.ema_decay`` > 0, ``g_ema`` a copy of G's."""
     dev = resolve_device(device)
     copy = lambda sd: {k: v.detach().to(dev, torch.float32).clone() for k, v in sd.items()}  # noqa: E731
     g_params, d_params = copy(g_state_dict), copy(d_state_dict)
     g_tx, d_tx = make_optimizers(cfg)
     return TrainState(step=0, g_params=g_params, d_params=d_params,
-                      g_opt=g_tx.init(g_params), d_opt=d_tx.init(d_params))
+                      g_opt=g_tx.init(g_params), d_opt=d_tx.init(d_params),
+                      g_ema=ema_init(cfg, g_params))
+
+
+def ema_init(cfg: Config, g_params: Params) -> Optional[Params]:
+    """A copy of G's parameters with ``train.ema_decay`` > 0, else None."""
+    if cfg.train.ema_decay <= 0:
+        return None
+    return {k: v.detach().clone() for k, v in g_params.items()}
+
+
+@torch.no_grad()
+def ema_update_(g_ema: Params, g_params: Params, decay: float) -> None:
+    """``e <- e * d + p * (1 - d)`` in float32, in place, with ``d`` and
+    ``1 - d`` rounded to float32 as the JAX package rounds them."""
+    d = np.float32(decay)
+    keys = list(g_ema)
+    ema = [g_ema[k] for k in keys]
+    torch._foreach_mul_(ema, float(d))
+    torch._foreach_add_(ema, [g_params[k] for k in keys], alpha=float(np.float32(1) - d))
 
 
 def init_state(cfg: Config, generator: Optional[torch.Generator] = None, device=None) -> TrainState:
@@ -240,12 +264,15 @@ def state_tree(state: TrainState, cfg: Optional[Config] = None) -> Dict[str, Any
     """The state as the nested dict a checkpoint holds, over the state's own
     tensors (no copy): ``step``, ``g_params`` / ``d_params`` (float32),
     ``g_opt`` / ``d_opt`` with their ``count`` and their ``mu`` / ``nu`` in
-    their own dtype, and, with ``cfg``, the config as JSON."""
+    their own dtype, ``g_ema`` when the state has one, and, with ``cfg``, the
+    config as JSON."""
     tree: Dict[str, Any] = {"step": int(state.step), "g_params": dict(state.g_params),
                             "d_params": dict(state.d_params)}
     for name in ("g_opt", "d_opt"):
         opt = getattr(state, name)
         tree[name] = {"count": int(opt.count), "mu": dict(opt.mu), "nu": dict(opt.nu)}
+    if state.g_ema is not None:
+        tree["g_ema"] = dict(state.g_ema)
     if cfg is not None:
         tree["config"] = json.dumps(dataclasses.asdict(cfg))
     return tree
@@ -276,16 +303,41 @@ def state_to_device(tree: Mapping[str, Any], device=None) -> TrainState:
 
     return TrainState(step=int(tree["step"]), g_params=move(tree["g_params"]),
                       d_params=move(tree["d_params"]), g_opt=opt(tree["g_opt"]),
-                      d_opt=opt(tree["d_opt"]))
+                      d_opt=opt(tree["d_opt"]),
+                      g_ema=move(tree["g_ema"]) if "g_ema" in tree else None)
 
 
 def restore_state(cfg: Config, mgr, step: Optional[int] = None,
                   template: Optional[TrainState] = None) -> TrainState:
     """The checkpoint at ``step`` (the latest when None) of ``mgr`` (a
     ``utils.checkpoint.CheckpointManager``), shaped and typed as ``template``
-    (``init_state(cfg)`` when None) and on its device. EMA is refused by
-    ``check_ported_train``, so there is no EMA tree to reconcile yet (the JAX
-    package's ``train/state.py:213-248``; ROADMAP Queue 1 item 5)."""
+    (``init_state(cfg)`` when None) and on its device.
+
+    A checkpoint whose EMA tree differs from the config's is reconciled, as
+    the JAX package's ``restore_state`` does: the template's structure is
+    tried first, then the one with the EMA tree toggled; with EMA on and no
+    stored tree, ``g_ema`` is seeded from the restored parameters; with EMA
+    off, a stored tree is dropped. Any other mismatch raises the first
+    attempt's error."""
     template = template if template is not None else init_state(cfg)
     device = next(iter(template.g_params.values())).device
-    return state_to_device(mgr.restore(state_tree(template, cfg), step=step), device)
+    want = state_tree(template, cfg)
+    try:
+        tree = mgr.restore(want, step=step)
+    except ValueError as first:
+        toggled = dict(want)
+        if "g_ema" in toggled:
+            del toggled["g_ema"]
+        else:
+            toggled["g_ema"] = want["g_params"]
+        try:
+            tree = mgr.restore(toggled, step=step)
+        except ValueError:
+            raise first from None
+    state = state_to_device(tree, device)
+    want_ema = cfg.train.ema_decay > 0
+    if want_ema and state.g_ema is None:
+        state.g_ema = ema_init(cfg, state.g_params)
+    if not want_ema:
+        state.g_ema = None
+    return state

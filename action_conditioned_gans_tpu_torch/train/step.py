@@ -2,15 +2,28 @@
 
 One step, with the JAX package's semantics:
 
-1. ONE generator forward, teacher-forced and folded over B*T, kept with its
-   graph (the JAX ``jax.vjp``);
+1. ONE generator rollout, kept with its graph (the JAX ``jax.vjp``):
+   teacher-forced and folded over B*T (in time chunks of
+   ``rollout_time_chunk``), or, with ``scheduled_sampling``, T steps in turn
+   each fed the ground truth or the previous prediction; ``remat_rollout``
+   checkpoints each generator call (``train/rollout.py``);
 2. D's loss and gradient on real vs detached fake transitions, both halves
-   in ONE discriminator call, then D's Adam update (``disc_steps`` times);
+   in ONE discriminator call, then D's Adam update (``disc_steps`` times).
+   With ``disc_microbatch`` the folded transitions go through D in ``nc``
+   equal chunks, the loss and gradient accumulated as loss/nc and grad/nc;
+   with ``d_augment`` real and fake are augmented with their own parameters
+   (``train/augment.py``);
 3. G's adversarial + ``recon_weight`` * reconstruction loss against the
    UPDATED D. D's parameters are frozen for this call (no D weight gradient
    is computed, as in JAX): the head is differentiated with respect to the
-   predictions only, and that cotangent is chained into G through the saved
-   forward. Then G's Adam update.
+   predictions only, chunk by chunk as D was (each chunk's cotangent scaled
+   by 1/nc), the augmentation inside it and the reconstruction on the raw
+   predictions, and that cotangent is chained once into G through the saved
+   forward. Then G's Adam update and, with ``ema_decay``, the EMA of G.
+
+The step's randomness (the rollout mask, the augmentation parameters) is a
+pure function of (seed, step): :func:`draw_step_randoms`. A resumed run
+draws what the uninterrupted one drew, without a host sync.
 
 On CUDA every conv block runs its Hopper kernel forward and, for a GroupNorm
 layer, the GroupNorm+activation backward kernel (``ops/kernels``); on the CPU
@@ -20,20 +33,29 @@ the plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from action_conditioned_gans_tpu_torch.config import Config, check_ported_train, resolve_device
+from action_conditioned_gans_tpu_torch.data.synthetic import batch_seed
 from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
+from action_conditioned_gans_tpu_torch.train import augment
 from action_conditioned_gans_tpu_torch.train import losses as L
 from action_conditioned_gans_tpu_torch.train.rollout import (
+    draw_use_pred,
+    rollout_generator,
     rollout_teacher_forced,
     scheduled_sampling_prob,
 )
-from action_conditioned_gans_tpu_torch.train.state import TrainState, global_norm, make_optimizers
+from action_conditioned_gans_tpu_torch.train.state import (
+    TrainState,
+    ema_update_,
+    global_norm,
+    make_optimizers,
+)
 
 
 def _fold_time(x):
@@ -41,24 +63,78 @@ def _fold_time(x):
     return None if x is None else x.reshape((-1,) + tuple(x.shape[2:]))
 
 
-def make_train_step(cfg: Config, device=None):
-    """Build the step: ``(TrainState, batch) -> (TrainState, metrics)``.
+@dataclasses.dataclass
+class StepRandoms:
+    """The random draws of one step; None where the knob that uses a draw is
+    off. ``use_pred`` (B, T) bool: the scheduled-sampling rollout mask;
+    ``u_real``, ``u_fake``, ``u_g`` (B*T, n_params) float32: the
+    augmentation parameters of D's real and fake halves and of the G head."""
+
+    use_pred: Optional[torch.Tensor] = None
+    u_real: Optional[torch.Tensor] = None
+    u_fake: Optional[torch.Tensor] = None
+    u_g: Optional[torch.Tensor] = None
+
+
+def draw_step_randoms(cfg: Config, seed: int, step: int, b: int, horizon: int,
+                      device) -> StepRandoms:
+    """Step ``step``'s draws, from a fresh ``torch.Generator`` on ``device``
+    seeded from ``SeedSequence([seed, step])``, in this order: the rollout
+    mask (with ``scheduled_sampling``; Bernoulli of the step's
+    ``scheduled_sampling_prob``), then ``u_real``, ``u_fake`` and ``u_g``
+    (with ``d_augment``). The JAX package folds the step into its key and
+    splits it in the same order; threefry itself is not reproduced."""
+    t = cfg.train
+    ops = augment.parse_policy(t.d_augment)
+    if not (t.scheduled_sampling or ops):
+        return StepRandoms()
+    device = torch.device(device)
+    gen = None
+    if device.type != "meta":  # meta tensors hold shapes only
+        gen = torch.Generator(device=device)
+        gen.manual_seed(batch_seed(seed, step))
+    out = StepRandoms()
+    if t.scheduled_sampling:
+        out.use_pred = draw_use_pred(gen, b, horizon, scheduled_sampling_prob(step, t), device)
+    if ops:
+        out.u_real, out.u_fake, out.u_g = (augment.draw_params(gen, ops, b * horizon, device)
+                                           for _ in range(3))
+    return out
+
+
+def disc_chunks(n_flat: int, disc_microbatch: int) -> int:
+    """How many chunks D runs over ``n_flat`` transitions: n_flat / mb for
+    mb the largest divisor of ``n_flat`` at most ``disc_microbatch``; 1
+    when microbatching is off or the chunk holds them all."""
+    mb = disc_microbatch if 0 < disc_microbatch < n_flat else 0
+    while mb and n_flat % mb:
+        mb -= 1
+    return n_flat // mb if mb else 1
+
+
+def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
+    """Build the step: ``(TrainState, batch, randoms=None) -> (TrainState,
+    metrics)``.
 
     The batch is the JAX package's clip layout, numpy arrays or tensors:
     ``frames`` (B, T+1, H, W, C) in [-1, 1], ``actions`` (B, T, A), and
     ``states`` (B, T, S) when ``cfg.model.state_dim`` > 0. The step runs on
     ``cuda`` unless another ``device`` is given; the state must live there.
-    It updates the state's parameter and moment tensors in place and returns
-    the state with ``step`` + 1, plus the metrics as 0-d float32 tensors under
-    the JAX package's keys.
+    Its draws come from ``seed`` (``train.seed + 1`` when None, the key the
+    JAX loop passes) and the state's step, unless ``randoms`` (a
+    :class:`StepRandoms`) gives them. It updates the state's parameter,
+    moment and EMA tensors in place and returns the state with ``step`` + 1,
+    plus the metrics as 0-d float32 tensors under the JAX package's keys.
     """
     check_ported_train(cfg)
     m, t = cfg.model, cfg.train
+    aug_ops = augment.parse_policy(t.d_augment)
     if t.gan_loss not in ("ce", "hinge"):
         raise ValueError(f"unknown gan_loss {t.gan_loss!r} (expected 'ce' or 'hinge')")
     if t.gan_loss == "hinge" and t.d_label_smooth > 0:
         raise ValueError("d_label_smooth is a cross-entropy concept; unset it or use gan_loss='ce'")
     dev = resolve_device(device)
+    seed = t.seed + 1 if seed is None else seed
     # The modules give structure only; the parameters come from the state.
     gen = Generator(m).to(dev)
     disc = Discriminator(m).to(dev)
@@ -94,19 +170,30 @@ def make_train_step(cfg: Config, device=None):
             return L.generator_hinge_adv_loss(fake_logits)
         return L.generator_adv_loss(fake_logits)
 
-    def train_step(state: TrainState, batch):
+    def train_step(state: TrainState, batch, randoms: Optional[StepRandoms] = None):
         where = next(iter(state.g_params.values())).device
         if where.type != dev.type or dev.index not in (None, where.index):
             raise ValueError(f"the train state is on {where}, the step on {dev}")
+        if t.ema_decay > 0 and state.g_ema is None:
+            raise ValueError("train.ema_decay > 0 but the state has no g_ema; build it with "
+                             "init_state(cfg) or state_from_params(cfg, ...)")
         frames = tensor(batch["frames"])
         actions = tensor(batch["actions"])
         states = tensor(batch["states"]) if m.state_dim else None
-        horizon = actions.shape[1]
+        b, horizon = actions.shape[:2]
         ss_prob = scheduled_sampling_prob(state.step, t)
+        if randoms is None:
+            randoms = draw_step_randoms(cfg, seed, state.step, b, horizon, dev)
 
-        # One generator forward, kept with its graph for G's update.
+        # One generator rollout, kept with its graph for G's update.
         g_leaves = leaves(state.g_params)
-        preds = rollout_teacher_forced(g_apply, g_leaves, frames, actions, states)
+        if t.scheduled_sampling:
+            preds = rollout_generator(g_apply, g_leaves, frames, actions, states,
+                                      randoms.use_pred, remat=t.remat_rollout)
+        else:
+            preds = rollout_teacher_forced(g_apply, g_leaves, frames, actions, states,
+                                           time_chunk=t.rollout_time_chunk,
+                                           remat=t.remat_rollout)
         flat_preds = _fold_time(preds)
 
         cond_frames = _fold_time(frames[:, :horizon])
@@ -114,30 +201,68 @@ def make_train_step(cfg: Config, device=None):
         flat_actions = _fold_time(actions)
         flat_states = _fold_time(states)
 
-        # D update(s) on the detached fakes; real and fake share one D call.
+        # D's inputs: each conditioning frame gets its next frame's transform.
+        fake = flat_preds.detach()
+        real_d, cond_real = augment.apply(aug_ops, randoms.u_real, real_next, cond_frames)
+        fake_d, cond_fake = augment.apply(aug_ops, randoms.u_fake, fake, cond_frames)
+        nc = disc_chunks(real_next.shape[0], t.disc_microbatch)
+
+        def chunks(x):
+            return [None] * nc if x is None else x.split(x.shape[0] // nc)
+
+        def mean_of(total, x):
+            """The running sum of x / nc over the chunks (x itself when nc == 1)."""
+            x = x / nc if nc > 1 else x
+            return x if total is None else total + x
+
         two = lambda x: None if x is None else torch.cat([x, x])  # noqa: E731
-        both = torch.cat([real_next, flat_preds.detach().float()])
+
+        # D update(s) on the detached fakes; real and fake share one D call
+        # per chunk; loss, accuracies and gradient accumulate as x / nc.
         for _ in range(max(t.disc_steps, 1)):
             d_leaves = leaves(state.d_params)
-            logits = d_apply(d_leaves, both, two(cond_frames), two(flat_actions), two(flat_states))
-            real_logits, fake_logits = logits.chunk(2)
-            d_loss = adv_loss_d(real_logits, fake_logits)
-            real_acc, fake_acc = L.discriminator_accuracy(real_logits, fake_logits)
-            d_grads = torch.autograd.grad(d_loss, list(d_leaves.values()))
+            d_loss = real_acc = fake_acc = d_grads = None
+            for rl, fk, cr, cf, ac, st in zip(*map(chunks, (
+                    real_d, fake_d, cond_real, cond_fake, flat_actions, flat_states))):
+                logits = d_apply(d_leaves, torch.cat([rl, fk.float()]), torch.cat([cr, cf]),
+                                 two(ac), two(st))
+                real_logits, fake_logits = logits.chunk(2)
+                loss = adv_loss_d(real_logits, fake_logits)
+                accs = L.discriminator_accuracy(real_logits, fake_logits)
+                grads = torch.autograd.grad(loss, list(d_leaves.values()))
+                if nc > 1:
+                    grads = torch._foreach_div(grads, float(nc))
+                if d_grads is None:
+                    d_grads = list(grads)
+                else:
+                    torch._foreach_add_(d_grads, grads)
+                d_loss = mean_of(d_loss, loss)
+                real_acc, fake_acc = mean_of(real_acc, accs[0]), mean_of(fake_acc, accs[1])
             d_tx.update_(state.d_params, d_grads, state.d_opt)
 
         # G head against the updated, frozen D: differentiate w.r.t. the
-        # predictions only, then chain that cotangent through G's forward
-        # (preds.backward(d_preds), with the gradients returned).
+        # predictions only, chunk by chunk, then chain that cotangent through
+        # G's forward (preds.backward(d_preds), with the gradients returned).
         d_frozen = {k: v.detach() for k, v in state.d_params.items()}
-        preds_in = flat_preds.detach().requires_grad_()
-        fake_logits = d_apply(d_frozen, preds_in, cond_frames, flat_actions, flat_states)
-        g_adv = adv_loss_g(fake_logits)
-        g_recon = L.reconstruction_loss(preds_in, real_next, t.recon_type)
-        g_loss = g_adv + t.recon_weight * g_recon
-        (d_preds,) = torch.autograd.grad(g_loss, preds_in)
-        g_grads = torch.autograd.grad(flat_preds, list(g_leaves.values()), d_preds)
+        g_loss = g_adv = g_recon = None
+        d_preds = []
+        for pr, rl, cd, ac, st, ug in zip(*map(chunks, (
+                flat_preds.detach(), real_next, cond_frames, flat_actions, flat_states,
+                randoms.u_g))):
+            pr = pr.requires_grad_()
+            d_in, cond_in = augment.apply(aug_ops, ug, pr, cd)
+            adv = adv_loss_g(d_apply(d_frozen, d_in, cond_in, ac, st))
+            recon = L.reconstruction_loss(pr, rl, t.recon_type)
+            loss = adv + t.recon_weight * recon
+            (dp,) = torch.autograd.grad(loss, pr)
+            d_preds.append(dp * (1.0 / nc) if nc > 1 else dp)
+            g_loss, g_adv = mean_of(g_loss, loss), mean_of(g_adv, adv)
+            g_recon = mean_of(g_recon, recon)
+        g_grads = torch.autograd.grad(flat_preds, list(g_leaves.values()),
+                                      d_preds[0] if nc == 1 else torch.cat(d_preds))
         g_tx.update_(state.g_params, g_grads, state.g_opt)
+        if t.ema_decay > 0:
+            ema_update_(state.g_ema, state.g_params, t.ema_decay)
 
         metrics = {
             "d_loss": d_loss, "g_loss": g_loss, "g_adv": g_adv, "g_recon": g_recon,
@@ -154,12 +279,13 @@ def make_train_step(cfg: Config, device=None):
     return train_step
 
 
-def make_multi_train_step(cfg: Config, device=None):
+def make_multi_train_step(cfg: Config, device=None, seed: Optional[int] = None):
     """k = ``cfg.train.steps_per_call`` fused steps a call, in sequence, over
     a stacked batch whose leaves have a leading (k, ...) axis; returns the
-    LAST step's metrics (the JAX package's ``lax.scan`` of the step). With
-    k <= 1 this is the single step over an unstacked batch."""
-    step = make_train_step(cfg, device)
+    LAST step's metrics (the JAX package's ``lax.scan`` of the step; each
+    step draws from ``seed`` and its own step number). With k <= 1 this is
+    the single step over an unstacked batch."""
+    step = make_train_step(cfg, device, seed)
     k = cfg.train.steps_per_call
     if k <= 1:
         return step

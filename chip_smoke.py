@@ -126,10 +126,37 @@ Phases, each of which fails the run (non-zero exit, no final line):
     share <= 1), and bench's p50 with cudnn.deterministic on, each beside
     the card's name and power limit.
 
-Then a ``kernels`` JSON line (per kernel: launches summed over the five
-main paths, max |err|, kernel, plain, bound and library times; kernel 4's
-over the config1 step's calls, and its config3 step's sums beside them),
-then the final line ``{"ok": true, "device": {...}}``.
+13. config4 training (64², state and action conditioning, B=64, T=10,
+    bfloat16) with CONFIG4_OVERRIDES: EMA, D augmentation and a
+    scheduled-sampling mix. The ``train`` subcommand for 32 steps (counts
+    set to 0 just before and read just after: EXPECTED["config4 step"] x 32
+    plus EXPECTED["config4 serving"] for each generator call of the
+    held-out rollouts, of the parameters and of their EMA, at 16 and 32);
+    its step-16 checkpoint resumed to 32 and held bit for bit against the
+    uninterrupted run, g_ema included (cudnn.deterministic on); metric
+    lines finite, ss_prob the schedule's, the ``*_ema`` held-out metrics
+    present. Then, as phase 10, one counted step (48 / 30 / 0 / 56
+    launches), every distinct conv and kernel-4 call of it against its
+    plain version at phases 10 and 11's bars, 20 timed steps and a profile.
+    Then in float32, TF32 off, B=2: the scheduled-sampling rollout with
+    every step fed its prediction against ``Predictor.rollout``, and with
+    none against the folded teacher-forced rollout, within 1e-5.
+14. config5 training (256², B=32, T=30, remat, time chunks of 2) with
+    CONFIG5_OVERRIDES (D in 4 chunks of 240 transitions): 2 warm-up steps,
+    one counted step (92 / 0 / 266 / 223 launches: G's forward kernels
+    twice under remat), every distinct call of kernels 1, 3 and 4 against
+    its plain version (the kernel-4 calls that read rows twice print their
+    plans), 3 timed steps, peak memory and a profile. Then at config5's
+    widths, B=2, T=4, float32, TF32 off: G's gradients with remat against
+    those without within 1e-5 relative (bit-identity printed), and
+    disc_microbatch=2 against 0 within the JAX package's bars (losses rtol
+    1e-5 / atol 1e-6, parameters atol 5e-6 / rtol 1e-4).
+
+Then a ``kernels`` JSON line (per kernel: launches summed over every main
+path, the config4 and config5 steps and the config4 loop included; max
+|err|, kernel, plain, bound and library times; kernel 4's over the config1
+step's calls, and its config3 step's sums beside them), then the final line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -138,6 +165,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -187,15 +215,42 @@ EXPECTED = {
     "config1 step": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
                           gn_act_bwd=11),
                      dict(conv_norm_act=dict(wgmma=9, wmma=3),
-                          conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (15, 0)),
+                          conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (15, 0), 0),
     "config5 serving": (dict(conv_norm_act=2, conv_transpose_norm_act=0, group_norm_act=7,
                              gn_act_bwd=0),
                         dict(conv_norm_act=dict(wgmma=2)), (2, 9)),
     "config3 step": (dict(conv_norm_act=23, conv_transpose_norm_act=4, group_norm_act=2,
                           gn_act_bwd=25),
                      dict(conv_norm_act=dict(wgmma=20, wmma=3),
-                          conv_transpose_norm_act=dict(wgmma=3, narrow=1)), (27, 2)),
+                          conv_transpose_norm_act=dict(wgmma=3, narrow=1)), (27, 2), 2),
+    # config4: 10 generator calls a step (kernel 1 on wgmma for enc_1 / enc_2,
+    # WMMA for enc_0 and the 263-channel bottleneck), D once in the update
+    # (B*T*2 = 1280) and once in the G head (640).
+    "config4 serving": (dict(conv_norm_act=4, conv_transpose_norm_act=3, group_norm_act=0,
+                             gn_act_bwd=0),
+                        dict(conv_norm_act=dict(wgmma=2, wmma=2),
+                             conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (7, 0)),
+    "config4 step": (dict(conv_norm_act=48, conv_transpose_norm_act=30, group_norm_act=0,
+                          gn_act_bwd=56),
+                     dict(conv_norm_act=dict(wgmma=26, wmma=22),
+                          conv_transpose_norm_act=dict(wgmma=20, narrow=10)), (78, 0), 0),
+    # config5 with disc_microbatch=240: 15 generator calls of 64 transitions
+    # (time chunks of 2), each run twice (remat), D in 4 chunks of 480 in the
+    # update and 4 of 240 in the G head.
+    "config5 step": (dict(conv_norm_act=92, conv_transpose_norm_act=0, group_norm_act=266,
+                          gn_act_bwd=223),
+                     dict(conv_norm_act=dict(wgmma=92)), (92, 334), 161),
 }
+# Phase 13's overrides of config4 (B=64, T=10, k=16 as the preset has them):
+# EMA, D augmentation, and a scheduled-sampling schedule that mixes from the
+# start (the preset anneals from 0 over 50,000 steps, near 0 in a short run).
+CONFIG4_OVERRIDES = ["train.ema_decay=0.999", "train.d_augment=color,translation,cutout",
+                     "train.ss_start_prob=0.5"]
+# Phase 14's override of config5 (remat, time chunks of 2, B=32, T=30): D in
+# chunks of 240 of the 960 transitions, so that one card holds the step.
+CONFIG5_OVERRIDES = ["train.disc_microbatch=240"]
+# A step path's fourth field: its kernel-4 calls that read a bfloat16 y (the
+# split layers' backward; kernel 3's launches less the remat recompute's).
 # tests/test_golden.py's tolerances on (d_loss, g_loss, g_recon): (atol, rtol).
 GOLDEN_TOL = ((2e-4, 1e-3), (2e-3, 1e-3), (2e-4, 1e-3))
 
@@ -860,28 +915,35 @@ def config1_train_config(batch=128):
                                                 adam_moment_dtype="bfloat16"))
 
 
-def phase_training(cfg, path, steps=20, warmup=3):
-    """``cfg`` at full width with seeded weights and seeded numpy clips: the
-    warm-up steps, one counted step (counts set to 0 before and read after,
-    every kernel wrapper's calls recorded), then ``steps`` steps timed."""
+def phase_training(cfg, path, steps=20, warmup=3, n_batches=4):
+    """``cfg`` at full width with seeded weights and clips drawn on the card
+    from a seed (B, T and the state as ``cfg`` has them): the warm-up steps,
+    one counted step (counts set to 0 before and read after, every kernel
+    wrapper's calls recorded), then ``steps`` steps timed."""
     from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
     from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
     from action_conditioned_gans_tpu_torch.train.state import param_count
 
-    batch, size = cfg.train.batch_size, cfg.model.image_size
-    check(cfg.model.compute_dtype == "bfloat16", f"{path} does not train in bfloat16")
-    check(cfg.train.rollout_length == 1, f"{path}: T must be 1")
+    mc = cfg.model
+    batch, size, horizon = cfg.train.batch_size, mc.image_size, max(cfg.train.rollout_length, 1)
+    check(mc.compute_dtype == "bfloat16", f"{path} does not train in bfloat16")
     state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
     step = make_train_step(cfg, device="cuda")
-    rng = np.random.default_rng(10)
-    batches = [dict(frames=torch.from_numpy(np.tanh(rng.standard_normal((batch, 2, size, size, 3)))
-                                            .astype(np.float32)).cuda(),
-                    actions=torch.from_numpy(rng.standard_normal((batch, 1, 4)).astype(np.float32)).cuda())
-               for _ in range(4)]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def clips():
+        out = dict(frames=torch.tanh(torch.randn((batch, horizon + 1, size, size, 3), generator=gen,
+                                                 device="cuda")),
+                   actions=torch.randn((batch, horizon, mc.action_dim), generator=gen, device="cuda"))
+        if mc.state_dim:
+            out["states"] = torch.randn((batch, horizon, mc.state_dim), generator=gen, device="cuda")
+        return out
+
+    batches = [clips() for _ in range(n_batches)]
     g0 = {k: v.clone() for k, v in state.g_params.items()}
     d0 = {k: v.clone() for k, v in state.d_params.items()}
     for i in range(warmup):
-        state, m = step(state, batches[i % 4])
+        state, m = step(state, batches[i % n_batches])
     torch.cuda.synchronize()
 
     # The main path's counted step; every kernel wrapper's calls are recorded.
@@ -910,7 +972,7 @@ def phase_training(cfg, path, steps=20, warmup=3):
     for name in real_conv:
         setattr(conv, name, record_conv(name))
     try:
-        state, m = step(state, batches[warmup % 4])
+        state, m = step(state, batches[warmup % n_batches])
         torch.cuda.synchronize()
     finally:
         gn_bwd.gn_act_bwd = real
@@ -924,14 +986,14 @@ def phase_training(cfg, path, steps=20, warmup=3):
     # compute dtype, as y.
     k3 = EXPECTED[path][0]["group_norm_act"]
     check(sum(1 for c in norm_calls if c[3]) == k3, f"{path}: kernel 3 calls under autograd")
-    y_bf16 = sum(1 for c in calls if c[5] == torch.bfloat16)
-    check(y_bf16 == k3, f"{path}: {y_bf16} gn_act_bwd calls read a bfloat16 y, want {k3}")
+    y_bf16, want = sum(1 for c in calls if c[5] == torch.bfloat16), EXPECTED[path][3]
+    check(y_bf16 == want, f"{path}: {y_bf16} gn_act_bwd calls read a bfloat16 y, want {want}")
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for i in range(steps):
-        state, m = step(state, batches[i % 4])
+        state, m = step(state, batches[i % n_batches])
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / steps
@@ -941,9 +1003,9 @@ def phase_training(cfg, path, steps=20, warmup=3):
     moved_d = max(float((state.d_params[k] - v).abs().max()) for k, v in d0.items())
     check(moved_g > 0 and moved_d > 0, "a parameter set did not move")
     n_g, n_d = param_count(state)
-    train = dict(path=path, train_step_ms=ms, frames_per_s=batch / ms * 1e3, batch=batch,
-                 steps_timed=steps, peak_memory_gb=peak_gb, g_params=n_g, d_params=n_d,
-                 step=state.step, last_metrics=metrics)
+    train = dict(path=path, train_step_ms=ms, frames_per_s=batch * horizon / ms * 1e3,
+                 batch=batch, horizon=horizon, steps_timed=steps, peak_memory_gb=peak_gb,
+                 g_params=n_g, d_params=n_d, step=state.step, last_metrics=metrics)
     say("training " + json.dumps(train))
     profile_call(path, lambda: step(state, batches[0]), ms)
     return launches, calls, conv_calls, norm_calls
@@ -1055,26 +1117,35 @@ def kernel4_plan(shape, dtype, groups, y_dtype):
                     size(y_dtype), size(dtype), b, h * w, c, gr))
 
 
+def gn_bwd_call_checked(call, seed):
+    """Kernel 4 at one training-step call against its plain version in
+    float32 on the same inputs: dx within 1e-2 abs + 1e-2 rel; dscale and
+    dbias, float32 sums over B*H*W values on both sides, within 1e-4 of
+    their largest magnitude plus 1e-4 relative. Returns (dx error, inputs)."""
+    shape, dtype, groups, act, leak, y_dtype = call
+    got, want, inputs = gn_bwd_pair(shape, groups, act, dtype, seed, y_dtype)
+    err, ok = within(got[0], want[0], 1e-2, 1e-2)
+    check(ok, f"gn_act_bwd at {shape}: bf16 dx vs plain ({err:.3e})")
+    for label, a, r in (("dscale", got[1], want[1]), ("dbias", got[2], want[2])):
+        e, ok = within(a, r, 1e-4 * float(r.abs().max()), 1e-4)
+        check(ok, f"gn_act_bwd at {shape}: {label} vs plain ({e:.3e}, max |{label}| "
+                  f"{float(r.abs().max()):.3e})")
+    return err, inputs
+
+
 def phase_gn_bwd_times(calls, path):
     """Kernel 4 at each of a training step's calls: kernel, plain and
     library times, the bound, the call's plan and resident clusters, and the
-    bfloat16 error against the plain version in float32 on the same inputs."""
+    bfloat16 error against the plain version in float32 on the same inputs
+    (:func:`gn_bwd_call_checked`)."""
     from action_conditioned_gans_tpu_torch.ops.common import resolve_groups
     from action_conditioned_gans_tpu_torch.ops.kernels import gn_bwd
 
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
                max_abs_err=0.0)
-    for i, (shape, dtype, groups, act, leak, y_dtype) in enumerate(calls):
-        got, want, (y, scale, bias, out, g, mean, rstd) = gn_bwd_pair(shape, groups, act, dtype,
-                                                                      500 + i, y_dtype)
-        err, ok = within(got[0], want[0], 1e-2, 1e-2)
-        check(ok, f"gn_act_bwd at {shape}: bf16 dx vs plain ({err:.3e})")
-        # dscale and dbias are float32 sums over B*H*W values on both sides:
-        # 1e-4 of their largest magnitude, plus 1e-4 relative.
-        for label, a, r in (("dscale", got[1], want[1]), ("dbias", got[2], want[2])):
-            e, ok = within(a, r, 1e-4 * float(r.abs().max()), 1e-4)
-            check(ok, f"gn_act_bwd at {shape}: {label} vs plain ({e:.3e}, max |{label}| "
-                      f"{float(r.abs().max()):.3e})")
+    for i, call in enumerate(calls):
+        shape, dtype, groups, act, leak, y_dtype = call
+        err, (y, scale, bias, out, g, mean, rstd) = gn_bwd_call_checked(call, 500 + i)
         kw = dict(groups=groups, act=act, leak=leak)
         ms = device_time_ms(lambda: gn_bwd.gn_act_bwd(y, scale, out, g, mean, rstd, **kw))
         plain_ms = device_time_ms(lambda: gn_bwd.gn_act_bwd_plain(y, scale, out, g, mean, rstd, **kw))
@@ -1097,6 +1168,25 @@ def phase_gn_bwd_times(calls, path):
         tot["bytes_ms"] += bytes_ms
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
     return tot
+
+
+def phase_gn_bwd_call_parity(calls, path, totals):
+    """Kernel 4 at each distinct call of a training step against its plain
+    version (:func:`gn_bwd_call_checked`); the plans of the calls that read
+    rows twice are printed. Folds the errors into ``totals``."""
+    distinct = list(dict.fromkeys(calls))
+    reread = 0
+    for i, call in enumerate(distinct):
+        shape, dtype, groups, act, leak, y_dtype = call
+        err, _ = gn_bwd_call_checked(call, 1200 + i)
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        plan = kernel4_plan(shape, dtype, groups, y_dtype)
+        if plan["plan"]["reread"] > 0:
+            reread += 1
+            say(f"{path} gn_act_bwd x{shape} y {str(y_dtype)[6:]} {act}: rows read twice, "
+                f"plan {json.dumps(plan)}, dx max|d|={err:.3e}")
+    say(f"{path} parity: {len(distinct)} distinct gn_act_bwd calls within phase 11's bars "
+        f"({reread} reading rows twice)")
 
 
 # -- kernel 3: the standalone GroupNorm + activation -----------------------------------
@@ -1371,12 +1461,12 @@ def phase_norm_times(layers, worst_bf16, batch=32):
 
 
 def phase_train_norm_parity(norm_calls, totals):
-    """Each kernel-3 call of the counted training step in bfloat16 against
-    its plain version in float32 on the same input, within 3e-2."""
+    """Each distinct kernel-3 call of the counted training step in bfloat16
+    against its plain version in float32 on the same input, within 3e-2."""
     from action_conditioned_gans_tpu_torch.ops.kernels import norm_act
 
     with torch.inference_mode():
-        for i, (shape, dtype, kw, _) in enumerate(norm_calls):
+        for i, (shape, dtype, kw, _) in enumerate(dict.fromkeys(norm_calls)):
             kw = dict(kw)
             x, s, b = norm_inputs(shape, dtype, seed=1100 + i)
             got = norm_act.group_norm_act(x, s, b, **kw)
@@ -1432,12 +1522,13 @@ def checkpoint_steps(workdir):
 
 
 def final_params(workdir, step):
-    """Parameters and moments of the checkpoint at ``step``, on the host."""
+    """Parameters, moments and EMA (when the run keeps one) of the
+    checkpoint at ``step``, on the host."""
     state = torch.load(os.path.join(workdir, "checkpoints", str(step), "state.pt"),
                        weights_only=True)
     flat = {}
-    for name in ("g_params", "d_params"):
-        flat.update({f"{name}/{k}": v for k, v in state[name].items()})
+    for name in ("g_params", "d_params", "g_ema"):
+        flat.update({f"{name}/{k}": v for k, v in state.get(name, {}).items()})
     for name in ("g_opt", "d_opt"):
         for moments in ("mu", "nu"):
             flat.update({f"{name}/{moments}/{k}": v for k, v in state[name][moments].items()})
@@ -1630,6 +1721,248 @@ def phase_loop(smi):
     return launches
 
 
+# -- phases 13 and 14: config4 and config5 training --------------------------------
+
+
+def config4_loop_args():
+    """The `train` subcommand as phase 13 drives it: config4 at the preset's
+    B=64, T=10, k=16, with CONFIG4_OVERRIDES, logs, checkpoints and held-out
+    rollouts every 16 steps, 2 kept."""
+    sets = [a for o in CONFIG4_OVERRIDES for a in ("--set", o)]
+    return ["--preset", "config4", *sets, "--set", "train.log_every=16",
+            "--set", "train.checkpoint_every=16", "--set", "train.sample_every=16",
+            "--set", "train.checkpoint_keep=2"]
+
+
+def phase_rollout_f32():
+    """config4's generator in float32, TF32 off, B=2, T=10: the training
+    rollout with scheduled sampling against the served rollout (mask all
+    true) and against the folded teacher-forced rollout (mask all false),
+    each within 1e-5."""
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+    from action_conditioned_gans_tpu_torch.train.rollout import (
+        rollout_generator,
+        rollout_teacher_forced,
+    )
+
+    c4 = get_preset("config4")
+    cfg = c4.replace(model=dataclasses.replace(c4.model, compute_dtype="float32"))
+    predictor = Predictor(cfg, seeded_params(cfg, seed=13), device="cuda")
+    apply = lambda params, f, a, st: predictor.generator(f, a, st)  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    size, horizon = cfg.model.image_size, cfg.train.rollout_length
+    frames = torch.tanh(torch.randn((2, horizon + 1, size, size, 3), generator=gen, device="cuda"))
+    actions = torch.randn((2, horizon, 4), generator=gen, device="cuda")
+    states = torch.randn((2, horizon, 3), generator=gen, device="cuda")
+    mask = lambda on: torch.full((2, horizon), on, dtype=torch.bool, device="cuda")  # noqa: E731
+    with torch.no_grad():
+        always = rollout_generator(apply, None, frames, actions, states, mask(True))
+        never = rollout_generator(apply, None, frames, actions, states, mask(False))
+        folded = rollout_teacher_forced(apply, None, frames, actions, states)
+    served = predictor.rollout(frames[:, 0], actions, states)
+    e_served = float((always - served).abs().max())
+    e_folded = float((never - folded).abs().max())
+    say(f"config4 rollout f32 B=2 T={horizon}: scheduled sampling all true vs Predictor.rollout "
+        f"max|d|={e_served:.3e}, all false vs the teacher-forced fold max|d|={e_folded:.3e}")
+    check(e_served <= 1e-5 and e_folded <= 1e-5, "the training rollout differs from its references")
+
+
+def phase_config4(smi, totals):
+    """Phase 13: config4 training at full width (bf16, B=64, T=10, k=16) with
+    EMA, D augmentation and a scheduled-sampling mix: the `train` subcommand
+    for 32 steps (counts set to 0 just before and read just after), a resume
+    from its step-16 checkpoint to 32 held bit for bit against it (g_ema
+    included, cudnn.deterministic on), its metric lines; then one counted
+    step, every distinct kernel call of it against its plain version, 20
+    timed steps and a profile; then the float32 rollout checks."""
+    import tempfile
+
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.ops.kernels import build
+    from action_conditioned_gans_tpu_torch.train.rollout import scheduled_sampling_prob
+
+    t_phase = time.perf_counter()
+    cfg = apply_overrides(get_preset("config4"), CONFIG4_OVERRIDES)
+    horizon = cfg.train.rollout_length
+    say(f"phase 13: config4 with {' '.join(CONFIG4_OVERRIDES)} (B={cfg.train.batch_size}, "
+        f"T={horizon}, k={cfg.train.steps_per_call})")
+    args = config4_loop_args()
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="loop-c4-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
+        whole, resumed = os.path.join(tmp, "whole"), os.path.join(tmp, "resumed")
+        torch.backends.cudnn.deterministic = True
+        try:
+            reset_launches()
+            out = run_cli(["train", *args, "--workdir", whole, "--steps", "32"])
+            launches = read_launches()
+            # 32 steps, and at each sample_every boundary two held-out
+            # rollouts (the parameters and their EMA) of T generator calls
+            # at B=8; read before the resumed run adds its own.
+            n_evals = sum(1 for r in metric_lines(out) if "eval_l2" in r)
+            check_runs("config4 train loop", launches,
+                       {"config4 step": 32, "config4 serving": 2 * n_evals * horizon})
+            os.makedirs(os.path.join(resumed, "checkpoints"))
+            shutil.copytree(os.path.join(whole, "checkpoints", "16"),
+                            os.path.join(resumed, "checkpoints", "16"))
+            again = run_cli(["train", *args, "--workdir", resumed, "--steps", "32"])
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        check("resumed from checkpoint at step 16" in again, "the resumed run did not start at 16")
+        lines = metric_lines(out)
+        steps = [r for r in lines if "ss_prob" in r]
+        evals = [r for r in lines if "eval_l2" in r]
+        check([r["step"] for r in steps] == [16, 32] and [r["step"] for r in evals] == [16, 32],
+              f"metric lines at steps {[r['step'] for r in lines]}")
+        check(all(np.isfinite(v) for r in lines for v in r.values()), "a non-finite metric line")
+        for r in steps:
+            want = float(np.float32(scheduled_sampling_prob(r["step"] - 1, cfg.train)))
+            check(r["ss_prob"] == want, f"ss_prob {r['ss_prob']} at step {r['step']}, want {want}")
+        check(all({"eval_l2_ema", "eval_psnr_ema", "eval_ssim_ema"} <= set(r) for r in evals),
+              "the held-out lines lack the EMA metrics")
+        check(checkpoint_steps(whole) == [16, 32], f"checkpoints {checkpoint_steps(whole)}")
+        same, max_diff, where = compare_states(final_params(whole, 32), final_params(resumed, 32))
+        say(f"config4 resume: 16 + 16 steps against 32 uninterrupted, cudnn.deterministic=True "
+            f"(g_ema included): bit-identical {same}, max |d| {max_diff:.3e} at {where}")
+        check(same, f"the resumed config4 run differs: {max_diff:.3e} at {where}")
+    launches_step, calls, conv_calls, _ = phase_training(cfg, "config4 step")
+    phase_train_conv_parity(conv_calls, totals)
+    phase_gn_bwd_call_parity(calls, "config4 step", totals["gn_act_bwd"])
+    phase_rollout_f32()
+    say(f"phase 13 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches, launches_step
+
+
+def phase_config5_reduced():
+    """config5's widths at B=2, T=4 in float32, TF32 off, cuDNN's
+    deterministic algorithms. G's gradients through the chunked rollout with
+    remat against those without, within 1e-5 relative (bit-identity
+    printed). One step with disc_microbatch=2 (4 chunks) against
+    disc_microbatch=0: the losses within rtol 1e-5 / atol 1e-6, and both
+    Adam states' first moments, which after the first step are (1 - b1)
+    times the accumulated gradients, within the parameter bars of the JAX
+    package's test_disc_microbatch_equivalence (atol 5e-6, rtol 1e-4). That
+    comparison runs PyTorch's own convolutions (cuDNN off), which compute a
+    sample alike at every batch size: cuDNN picks its float32 algorithms by
+    batch size, and 4- and 16-sample calls differ by up to ~1e-4 of a
+    gradient's largest entry. The entries beyond the JAX bars are printed,
+    of the moments and of the updated parameters, with cuDNN off and on:
+    Adam's first step moves each entry by lr * g / (|g| + 1e-8), so an entry
+    whose gradient sits at float32's rounding floor moves by up to +-lr on a
+    rounding difference."""
+    from torch.func import functional_call
+
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.models import Generator
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+    from action_conditioned_gans_tpu_torch.train.rollout import rollout_teacher_forced
+    from action_conditioned_gans_tpu_torch.train.state import state_to_device, state_to_host
+
+    c5 = get_preset("config5")
+    cfg = c5.replace(model=dataclasses.replace(c5.model, compute_dtype="float32"),
+                     train=dataclasses.replace(c5.train, batch_size=2, rollout_length=4))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    size = cfg.model.image_size
+    frames = torch.tanh(torch.randn((2, 5, size, size, 3), generator=gen, device="cuda"))
+    actions = torch.randn((2, 4, 4), generator=gen, device="cuda")
+    ct = torch.randn((2, 4, size, size, 3), generator=gen, device="cuda")
+    model = Generator(cfg.model, generator=torch.Generator().manual_seed(21)).cuda()
+    apply = lambda p, f, a, st: functional_call(model, p, (f, a, st))  # noqa: E731
+
+    def grads(remat):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in model.state_dict().items()}
+        preds = rollout_teacher_forced(apply, leaves, frames, actions, None, time_chunk=2,
+                                       remat=remat)
+        return torch.autograd.grad(preds, list(leaves.values()), ct)
+
+    state0 = init_state(cfg, torch.Generator().manual_seed(22), device="cuda")
+    batch = dict(frames=frames, actions=actions)
+
+    def run(mb):
+        c = cfg.replace(train=dataclasses.replace(cfg.train, disc_microbatch=mb))
+        return make_train_step(c, device="cuda")(state_to_device(state_to_host(state0), "cuda"),
+                                                  batch)
+
+    enabled, deterministic = torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with_remat, without = grads(True), grads(False)
+        with_cudnn = run(0), run(2)
+        torch.backends.cudnn.enabled = False
+        (full, m_full), (chunked, m_chunk) = run(0), run(2)
+    finally:
+        torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic = enabled, deterministic
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(with_remat, without))
+    bits = all(torch.equal(a, b) for a, b in zip(with_remat, without))
+    say(f"config5 widths f32 B=2 T=4, chunks of 2: G gradients with remat vs without: max "
+        f"relative |d| {rel:.3e} (bar 1e-5), bit-identical {bits}")
+    check(rel <= 1e-5, f"remat changes G's gradients by {rel:.3e} relative")
+
+    worst_loss = worst_moment = 0.0
+    for k in ("d_loss", "g_loss", "g_adv", "g_recon"):
+        a, b = float(m_chunk[k]), float(m_full[k])
+        check(abs(a - b) <= 1e-6 + 1e-5 * abs(b), f"disc_microbatch=2 {k} {a} vs {b}")
+        worst_loss = max(worst_loss, abs(a - b))
+
+    def beyond_bars(full, chunked):
+        """{params: [entries of the moments beyond the JAX bars, entries of
+        the updated parameters beyond them, the largest |gradient| among
+        the latter]} of a microbatched state against the full batch's."""
+        out = {}
+        for name, opt in (("g_params", "g_opt"), ("d_params", "d_opt")):
+            n_mu = n_p = 0
+            largest = 0.0
+            for k, v in getattr(full, opt).mu.items():
+                n_mu += int(((getattr(chunked, opt).mu[k] - v).abs() > 5e-6 + 1e-4 * v.abs()).sum())
+                p, q = getattr(chunked, name)[k], getattr(full, name)[k]
+                over = (p - q).abs() > 5e-6 + 1e-4 * q.abs()
+                if bool(over.any()):
+                    n_p += int(over.sum())
+                    g = (v.float()[over] / (1 - cfg.train.adam_b1)).abs()
+                    largest = max(largest, float(g.max()))
+            out[name] = [n_mu, n_p, largest]
+        return out
+
+    for opt in ("g_opt", "d_opt"):
+        for k, v in getattr(full, opt).mu.items():
+            err, ok = within(getattr(chunked, opt).mu[k], v, 5e-6, 1e-4)
+            check(ok, f"disc_microbatch=2 {opt}.mu/{k} (the gradient) differs from the full "
+                      f"batch's ({err:.3e})")
+            worst_moment = max(worst_moment, err)
+    say(f"config5 widths f32 B=2 T=4: disc_microbatch=2 (4 chunks) vs 0, cuDNN off: losses "
+        f"max|d| {worst_loss:.3e} (rtol 1e-5, atol 1e-6), first moments max|d| "
+        f"{worst_moment:.3e} (atol 5e-6, rtol 1e-4); entries beyond those bars (moments, "
+        f"updated parameters, largest |gradient| among the latter): "
+        f"{json.dumps(beyond_bars(full, chunked))}; the same with cuDNN on (deterministic "
+        f"algorithms; not checked): {json.dumps(beyond_bars(with_cudnn[0][0], with_cudnn[1][0]))}")
+
+
+def phase_config5(smi, totals):
+    """Phase 14: config5 training at full width (bf16, 256², B=32, T=30,
+    remat, time chunks of 2) with CONFIG5_OVERRIDES: 2 warm-up steps, one
+    counted step and every distinct kernel call of it against its plain
+    version, 3 timed steps, peak memory and a profile; then the reduced-size
+    remat and microbatch parity."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+
+    t_phase = time.perf_counter()
+    cfg = apply_overrides(get_preset("config5"), CONFIG5_OVERRIDES)
+    t = cfg.train
+    say(f"phase 14: config5 with {' '.join(CONFIG5_OVERRIDES)} (B={t.batch_size}, "
+        f"T={t.rollout_length}, remat {t.remat_rollout}, time chunk {t.rollout_time_chunk})")
+    launches, calls, conv_calls, norm_calls = phase_training(cfg, "config5 step", steps=3,
+                                                             warmup=2, n_batches=2)
+    phase_train_conv_parity(conv_calls, totals)
+    phase_train_norm_parity(norm_calls, totals["group_norm_act"])
+    phase_gn_bwd_call_parity(calls, "config5 step", totals["gn_act_bwd"])
+    phase_config5_reduced()
+    say(f"phase 14 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1712,6 +2045,8 @@ def main() -> int:
     totals["gn_act_bwd"]["max_abs_err"] = max(totals["gn_act_bwd"]["max_abs_err"],
                                               config3["max_abs_err"])
     launches["config1 train loop"] = phase_loop(smi)
+    launches["config4 train loop"], launches["config4 step"] = phase_config4(smi, totals)
+    launches["config5 step"] = phase_config5(smi, totals)
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 

@@ -25,7 +25,8 @@ torch.set_num_threads(1)
 KEYS = ("config", "image_size", "batch_size", "rollout_length", "steps_per_call", "num_chips",
         "p50_step_latency_ms", "p90_step_latency_ms", "frames_per_sec_per_chip", "device",
         "first_step_s", "step_tflops_analytic", "achieved_tflops_per_chip_analytic",
-        "roofline_utilization_analytic")
+        "roofline_utilization_analytic", "analytic_flops_count_remat_recompute",
+        "peak_memory_gb")
 
 
 def test_run_bench_returns_every_key_finite():
@@ -34,8 +35,11 @@ def test_run_bench_returns_every_key_finite():
     assert sorted(out) == sorted(KEYS)
     assert (out["config"], out["device"], out["num_chips"], out["steps_per_call"]) == (
         "tiny", "cpu", 1, 2)
+    assert out["analytic_flops_count_remat_recompute"] is False
+    assert out["peak_memory_gb"] is None  # a device metric: the CPU has none
     for k, v in out.items():
-        if k not in ("config", "device"):
+        if k not in ("config", "device", "analytic_flops_count_remat_recompute",
+                     "peak_memory_gb"):
             assert isinstance(v, (int, float)) and math.isfinite(v) and v > 0, k
     assert out["p90_step_latency_ms"] >= out["p50_step_latency_ms"]
     assert out["frames_per_sec_per_chip"] == pytest.approx(
@@ -98,6 +102,33 @@ def test_step_flops_match_jax_analytic_count(name):
             f"{primitive}: the port counts {mine} FLOPs in {aten_ops}, JAX "
             f"{theirs.get(primitive, 0.0)}")
     assert sum(counts.values()) == pytest.approx(total, rel=0.02)
+
+
+def test_remat_flops_count_the_recomputed_forward():
+    """With remat_rollout the backward runs G's forward again: the step's
+    count grows by exactly one generator forward over the B*T transitions,
+    in aten.convolution; the time chunks change nothing."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from action_conditioned_gans_tpu_torch.models import Generator
+
+    def counts(**kw):
+        return step_flop_counts(port_config(tiny_config(rollout_length=4, batch_size=3, **kw)))
+
+    plain, chunked = counts(), counts(rollout_time_chunk=2)
+    remat = counts(rollout_time_chunk=2, remat_rollout=True)
+    assert chunked == plain
+    m = port_config(tiny_config()).model
+    with torch.device("meta"):
+        gen = Generator(m)
+        frame, action = torch.empty(12, 16, 16, 3), torch.empty(12, 4)
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        gen(frame, action)
+    forward = counter.get_total_flops()
+    assert remat["aten.convolution"] - plain["aten.convolution"] == forward > 0
+    assert {k: v for k, v in remat.items() if k != "aten.convolution"} == {
+        k: v for k, v in plain.items() if k != "aten.convolution"}
 
 
 def test_bench_subcommand_prints_one_json_line(capsys):

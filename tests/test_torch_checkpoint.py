@@ -1,6 +1,7 @@
 """The port's checkpoints (``utils/checkpoint.py``, ``train/state.py``'s
-``restore_state``) and the state carried across from the JAX package
-(``convert.train_state_from_jax``), on the CPU."""
+``restore_state``, which reconciles an EMA tree with the config as the JAX
+package does) and the state carried across from the JAX package
+(``convert.train_state_from_jax``, EMA included), on the CPU."""
 
 import dataclasses
 import json
@@ -13,7 +14,7 @@ import torch
 
 from action_conditioned_gans_tpu.train import init_state as jax_init_state
 from action_conditioned_gans_tpu.train.step import jit_train_step
-from action_conditioned_gans_tpu_torch.convert import train_state_from_jax
+from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict, train_state_from_jax
 from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
 from action_conditioned_gans_tpu_torch.train.state import restore_state, state_to_host, state_tree
 from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
@@ -23,8 +24,8 @@ from tests.test_train_step import make_batch, tiny_config
 torch.set_num_threads(1)
 
 
-def tiny_state(moments="bfloat16", steps=1, seed=0):
-    cfg = port_config(tiny_config(adam_moment_dtype=moments))
+def tiny_state(moments="bfloat16", steps=1, seed=0, **train_kw):
+    cfg = port_config(tiny_config(adam_moment_dtype=moments, **train_kw))
     state = init_state(cfg, torch.Generator().manual_seed(seed), device="cpu")
     step = make_train_step(cfg, device="cpu")
     for i in range(steps):
@@ -39,6 +40,11 @@ def assert_states_equal(a, b):
         assert pa.keys() == pb.keys()
         for k in pa:
             assert pa[k].dtype == pb[k].dtype and torch.equal(pa[k], pb[k]), f"{name}/{k}"
+    assert (a.g_ema is None) == (b.g_ema is None)
+    if a.g_ema is not None:
+        assert a.g_ema.keys() == b.g_ema.keys()
+        for k in a.g_ema:
+            assert torch.equal(a.g_ema[k], b.g_ema[k]), f"g_ema/{k}"
     for name in ("g_opt", "d_opt"):
         oa, ob = getattr(a, name), getattr(b, name)
         assert oa.count == ob.count, name
@@ -65,6 +71,49 @@ def test_round_trip_is_bit_exact(tmp_path, moments):
     host = state_to_host(state, cfg)
     state.g_params["enc_0.kernel"].add_(1.0)
     assert not torch.equal(host["g_params"]["enc_0.kernel"], state.g_params["enc_0.kernel"])
+
+
+def test_ema_round_trips_and_is_reconciled_both_ways(tmp_path):
+    """g_ema crosses a checkpoint bit for bit; a checkpoint without one
+    restores into an EMA config with g_ema seeded from its parameters, and
+    one with an EMA tree into a config without EMA with the tree dropped, as
+    the JAX package's restore_state reconciles them."""
+    cfg, state = tiny_state("float32", steps=2, ema_decay=0.9)
+    assert state.g_ema is not None
+    assert not torch.equal(state.g_ema["enc_0.kernel"], state.g_params["enc_0.kernel"])
+    with_ema = CheckpointManager(str(tmp_path / "ema"))
+    with_ema.save(2, state_to_host(state, cfg))
+    assert sorted(state_tree(state)) == ["d_opt", "d_params", "g_ema", "g_opt", "g_params", "step"]
+    restored = restore_state(cfg, with_ema, template=init_state(cfg, torch.Generator(),
+                                                                 device="cpu"))
+    assert_states_equal(restored, state)
+
+    plain_cfg, plain = tiny_state("float32", steps=2)
+    dropped = restore_state(plain_cfg, with_ema, template=init_state(
+        plain_cfg, torch.Generator(), device="cpu"))
+    assert dropped.g_ema is None
+    state.g_ema = None
+    assert_states_equal(dropped, state)
+
+    without = CheckpointManager(str(tmp_path / "plain"))
+    without.save(2, state_to_host(plain, plain_cfg))
+    seeded = restore_state(cfg, without, template=init_state(cfg, torch.Generator(),
+                                                              device="cpu"))
+    for k, v in plain.g_params.items():
+        assert torch.equal(seeded.g_ema[k], v) and seeded.g_ema[k].data_ptr() != v.data_ptr()
+    seeded.g_ema = None
+    assert_states_equal(seeded, plain)
+
+
+def test_reconciling_keeps_the_first_error(tmp_path):
+    """A mismatch that is not the EMA tree's raises the error of the
+    config's own template, not the toggled one's."""
+    cfg, state = tiny_state("float32", steps=0, ema_decay=0.9)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, state_to_host(state, cfg))
+    bf16 = port_config(tiny_config(adam_moment_dtype="bfloat16", ema_decay=0.9))
+    with pytest.raises(ValueError, match=r"g_opt/mu/\S+ has dtype torch.float32"):
+        restore_state(bf16, mgr, template=init_state(bf16, torch.Generator(), device="cpu"))
 
 
 def test_only_the_newest_keep_steps_stay(tmp_path):
@@ -169,6 +218,20 @@ def test_state_carried_across_continues_the_jax_run(moments):
         (adam,) = adam_states(jopt)
         assert opt.count == int(adam.count) == 4
         assert {v.dtype for v in opt.mu.values()} == {getattr(torch, moments)}
+
+
+def test_carried_state_keeps_its_ema():
+    """A JAX state with EMA on crosses with its g_ema, bit for bit."""
+    jc = tiny_config(ema_decay=0.9)
+    js = jax_init_state(jc, jax.random.PRNGKey(4))
+    js, _ = jit_train_step(jc)(js, make_batch(jc), jax.random.PRNGKey(0))
+    ts = train_state_from_jax(port_config(jc), np_tree(js), device="cpu")
+    want = flax_to_state_dict(np_tree(js.g_ema))
+    assert ts.g_ema.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(ts.g_ema[k], v), k
+    assert train_state_from_jax(port_config(tiny_config()), np_tree(
+        jax_init_state(tiny_config(), jax.random.PRNGKey(4))), device="cpu").g_ema is None
 
 
 def test_carried_state_is_exact_and_checked():

@@ -37,7 +37,7 @@ def test_the_scan_sees_the_whole_port():
                    "train/state.py", "train/rollout.py", "train/step.py",
                    "ops/kernels/norm_act.py", "ops/envelope.py", "data/synthetic.py",
                    "data/pipeline.py", "utils/checkpoint.py", "utils/metrics.py",
-                   "train/loop.py", "train/sample.py", "bench.py"):
+                   "train/loop.py", "train/sample.py", "bench.py", "train/augment.py"):
         assert f"action_conditioned_gans_tpu_torch/{module}" in rel
     assert len(rel) >= 32
 

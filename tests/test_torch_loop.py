@@ -3,6 +3,10 @@
 (``train/sample.py``) and the ``train`` subcommand, on the CPU, against the
 JAX package where it has the same function.
 
+A config4-like run (scheduled sampling, augmentation, EMA) resumes bit for
+bit, and with EMA on the held-out lines carry the EMA weights' metrics as
+the JAX loop's do.
+
 Preemption is tested as ``tests/test_preemption.py`` tests the JAX loop:
 SIGTERM delivered from ``MetricWriter.tick`` (called once per call of the
 step, after it), SIGKILL of a worker process after its first checkpoint.
@@ -32,6 +36,7 @@ from action_conditioned_gans_tpu_torch.data.synthetic import SyntheticClips
 from action_conditioned_gans_tpu_torch.train import init_state, make_multi_train_step, make_train_step
 from action_conditioned_gans_tpu_torch.train import sample
 from action_conditioned_gans_tpu_torch.train.loop import crossed, train
+from action_conditioned_gans_tpu_torch.train.rollout import scheduled_sampling_prob
 from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
 from action_conditioned_gans_tpu_torch.utils.metrics import MetricWriter
 from tests import test_preemption
@@ -247,6 +252,47 @@ def test_resume_is_exact(tmp_path):
     assert whole.step == resumed.step == 8
     assert_states_equal(resumed, whole)
     assert resumed.g_opt.count == resumed.d_opt.count == 8
+
+
+def config4_like(workdir, **train_kw):
+    """config4's knobs at the tiny size: state and action conditioning, a
+    3-step rollout with scheduled sampling, D augmentation and EMA."""
+    kw = dict(rollout_length=3, scheduled_sampling=True, ss_start_prob=0.5, ss_decay_steps=8,
+              d_augment="color,translation,cutout", ema_decay=0.9, steps_per_call=2,
+              checkpoint_every=4)
+    cfg = loop_config(workdir, **{**kw, **train_kw})
+    return cfg.replace(model=dataclasses.replace(cfg.model, state_dim=3))
+
+
+def test_config4_like_resume_is_exact(tmp_path, capsys):
+    """8 uninterrupted steps against 4 and a resumed run to 8: parameters,
+    moments, counts and g_ema bit-identical (the step's draws are a function
+    of the seed and the step); each metric line's ss_prob is the schedule's
+    at the line's last step."""
+    whole = train(config4_like(tmp_path / "whole", log_every=2), max_steps=8, device="cpu")
+    lines = [r for r in metric_lines(capsys.readouterr().out) if "ss_prob" in r]
+    assert [r["step"] for r in lines] == [2, 4, 6, 8]
+    cfg = config4_like(tmp_path / "split")
+    for r in lines:
+        assert r["ss_prob"] == float(np.float32(scheduled_sampling_prob(r["step"] - 1, cfg.train)))
+    assert train(cfg, max_steps=4, device="cpu").step == 4
+    resumed = train(cfg, max_steps=8, device="cpu")
+    assert resumed.g_ema is not None and whole.step == resumed.step == 8
+    assert_states_equal(resumed, whole)
+
+
+def test_ema_eval_lines_match_the_jax_loop(tmp_path, capsys):
+    """With EMA on, both loops write the held-out metrics of the EMA weights
+    (``*_ema``) beside the raw ones, at the same steps."""
+    kw = dict(steps_per_call=2, log_every=4, checkpoint_every=4, sample_every=4, ema_decay=0.9)
+    jax_loop.train(jax_loop_config(tmp_path / "jax", **kw), max_steps=4)
+    theirs = metric_lines(capsys.readouterr().out)
+    train(loop_config(tmp_path / "port", **kw), max_steps=4, device="cpu")
+    mine = metric_lines(capsys.readouterr().out)
+    shape = lambda lines: [(r["step"], sorted(r)) for r in lines]  # noqa: E731
+    assert shape(mine) == shape(theirs)
+    evals = [r for r in mine if "eval_l2" in r]
+    assert len(evals) == 1 and {"eval_l2_ema", "eval_psnr_ema"} <= set(evals[0])
 
 
 def test_resume_asks_for_the_next_batch(tmp_path, monkeypatch):

@@ -2,7 +2,10 @@
 
 Losses, Adam (float32 and bfloat16 moments, clipping, schedules) against
 optax, the learning-rate schedules, one fused step's metrics, parameters and
-moments against ``jit_train_step``, and the four-step golden trajectory of
+moments against ``jit_train_step`` (also with each of the six knobs of the
+rollout and the step: scheduled sampling, time chunks, remat, D
+microbatching, EMA and D augmentation, the JAX-drawn randoms fed to the
+port), and the four-step golden trajectory of
 tests/test_golden.py reproduced from converted ``init_state`` parameters and
 the JAX ``make_batch`` batches. Also the committed training fixture
 ``tests/fixtures/torch_port_tiny_train.npz`` (replayed on the GPU by
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 from action_conditioned_gans_tpu.config import TrainConfig as JaxTrainConfig
+from action_conditioned_gans_tpu.train import augment as JA
 from action_conditioned_gans_tpu.train import init_state as jax_init_state
 from action_conditioned_gans_tpu.train import losses as JL
 from action_conditioned_gans_tpu.train import state as JS
@@ -33,7 +37,9 @@ from action_conditioned_gans_tpu_torch import config as tcfg
 from action_conditioned_gans_tpu_torch.convert import flatten_flax, flax_to_state_dict
 from action_conditioned_gans_tpu_torch.models import Generator
 from action_conditioned_gans_tpu_torch.train import TrainState, init_state, losses, make_train_step
+from action_conditioned_gans_tpu_torch.data.synthetic import batch_seed
 from action_conditioned_gans_tpu_torch.train import state as S
+from action_conditioned_gans_tpu_torch.train.step import StepRandoms, disc_chunks, draw_step_randoms
 from action_conditioned_gans_tpu_torch.train.rollout import (
     rollout_teacher_forced,
     scheduled_sampling_prob,
@@ -303,11 +309,8 @@ def test_port_reproduces_the_committed_train_fixture():
 # -- knobs, state, rollout -------------------------------------------------------
 
 
-@pytest.mark.parametrize("knob", [
-    dict(scheduled_sampling=True), dict(d_augment="flip"), dict(r1_weight=1.0),
-    dict(disc_microbatch=2), dict(rollout_time_chunk=1), dict(remat_rollout=True),
-    dict(ema_decay=0.99), "norm_batch",
-], ids=lambda k: k if isinstance(k, str) else next(iter(k)))
+@pytest.mark.parametrize("knob", [dict(r1_weight=1.0), "norm_batch"],
+                         ids=lambda k: k if isinstance(k, str) else next(iter(k)))
 def test_unported_training_knobs_raise_at_step_build(knob):
     jc = tiny_config() if knob == "norm_batch" else tiny_config(**knob)
     cfg = port_config(jc)
@@ -315,6 +318,155 @@ def test_unported_training_knobs_raise_at_step_build(knob):
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, norm="batch"))
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(cfg, device="cpu")
+
+
+def test_unknown_augment_op_raises_at_step_build():
+    """As the JAX package's step does: a typo'd op fails at build."""
+    with pytest.raises(ValueError, match="unknown d_augment op 'flip'"):
+        make_train_step(port_config(tiny_config(d_augment="color,flip")), device="cpu")
+
+
+# -- the six knobs of the rollout and the step, against JAX ---------------------------
+
+
+def jax_randoms(jc, rng, step, b, horizon):
+    """The draws JAX's step makes from ``rng`` at ``step`` (its key folded
+    with the step, then split: the rollout key, then the augment key into
+    real / fake / G head), as the port's StepRandoms."""
+    t = jc.train
+    key = jax.random.fold_in(rng, step)
+    key, gkey = jax.random.split(key)
+    out = StepRandoms()
+    if t.scheduled_sampling:
+        p = jax_ss_prob(jnp.asarray(step), t)
+        keys = jax.random.split(gkey, horizon)
+        out.use_pred = torch.from_numpy(np.stack(
+            [np.asarray(jax.random.bernoulli(k, p, (b,))) for k in keys], axis=1))
+    ops = JA.parse_policy(t.d_augment)
+    if ops:
+        _, akey = jax.random.split(key)
+        out.u_real, out.u_fake, out.u_g = (
+            torch.from_numpy(np.array(JA.draw_params(k, ops, b * horizon)))
+            for k in jax.random.split(akey, 3))
+    return out
+
+
+KNOB_CASES = {  # name: (train knobs, model knobs)
+    "scheduled_sampling": (dict(scheduled_sampling=True, ss_start_prob=0.5, rollout_length=3),
+                           dict(state_dim=3)),
+    "time_chunk_remat": (dict(rollout_length=4, rollout_time_chunk=2, remat_rollout=True), {}),
+    "ss_remat": (dict(scheduled_sampling=True, ss_start_prob=0.5, rollout_length=3,
+                      remat_rollout=True), {}),
+    "disc_microbatch": (dict(rollout_length=4, disc_microbatch=3, log_grad_norms=True),
+                        dict(state_dim=3)),
+    "ema": (dict(ema_decay=0.9, rollout_length=2), {}),
+    "d_augment": (dict(d_augment="color,translation,cutout", rollout_length=2), {}),
+    "all_six": (dict(scheduled_sampling=True, ss_start_prob=0.5, rollout_length=4,
+                     remat_rollout=True, rollout_time_chunk=2, disc_microbatch=4, ema_decay=0.99,
+                     d_augment="color,translation,cutout"), dict(state_dim=3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KNOB_CASES))
+def test_knob_steps_match_jit_train_step(name):
+    """Two steps with the randoms JAX draws fed to the port: every metric
+    (1e-5 abs / 1e-4 rel), the updated parameters (2e-5) and g_ema (2e-5),
+    inside tests/test_golden.py's tolerances."""
+    train_kw, model_kw = KNOB_CASES[name]
+    jc = tiny_config(**train_kw)
+    jc = dataclasses.replace(jc, model=dataclasses.replace(jc.model, **model_kw))
+    js = jax_init_state(jc, jax.random.PRNGKey(3))
+    ts = port_state(jc, js)
+    assert (ts.g_ema is not None) == (jc.train.ema_decay > 0)
+    jstep, tstep = jit_train_step(jc), make_train_step(port_config(jc), device="cpu")
+    rng = jax.random.PRNGKey(5)
+    for i in range(2):
+        batch = make_batch(jc, seed=20 + i)
+        b, horizon = batch["actions"].shape[:2]
+        randoms = jax_randoms(jc, rng, i, b, horizon)
+        js, jm = jstep(js, batch, rng)
+        ts, tm = tstep(ts, np_batch(batch), randoms)
+        assert sorted(tm) == sorted(jm)
+        for k in jm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=1e-5, rtol=1e-4, err_msg=k)
+    if jc.train.scheduled_sampling:
+        assert 0 < float(randoms.use_pred[:, 1:].float().mean()) < 1  # a real mix
+    assert ts.step == int(js.step) == 2
+    g_sd, d_sd = state_dicts(js)
+    pairs = [(ts.g_params, g_sd), (ts.d_params, d_sd)]
+    if jc.train.ema_decay > 0:
+        pairs.append((ts.g_ema, flax_to_state_dict(np_tree(js.g_ema))))
+        # After two updates the EMA sits between the init and the parameters.
+        assert any(not torch.equal(ts.g_ema[k], ts.g_params[k]) for k in ts.g_ema)
+    for mine, theirs in pairs:
+        assert mine.keys() == theirs.keys()
+        for k in mine:
+            np.testing.assert_allclose(mine[k].numpy(), theirs[k].numpy(), atol=2e-5, err_msg=k)
+
+
+def test_disc_microbatch_equals_the_full_batch():
+    """tests/test_train_step.py::test_disc_microbatch_equivalence on the
+    port: disc_microbatch=2 against 0, losses within rtol 1e-5 / atol 1e-6,
+    the updated parameters within atol 5e-6 / rtol 1e-4."""
+    def run(mb):
+        jc = tiny_config(rollout_length=4, batch_size=2, disc_microbatch=mb)
+        jc = dataclasses.replace(jc, model=dataclasses.replace(jc.model, state_dim=3))
+        ts = port_state(jc, jax_init_state(jc, jax.random.PRNGKey(0)))
+        return make_train_step(port_config(jc), device="cpu")(ts, np_batch(make_batch(jc)))
+
+    (full, m_full), (chunked, m_chunk) = run(0), run(2)
+    for k in ("d_loss", "g_loss", "g_adv", "g_recon"):
+        np.testing.assert_allclose(float(m_chunk[k]), float(m_full[k]), rtol=1e-5, atol=1e-6)
+    for name in ("g_params", "d_params"):
+        for k, v in getattr(full, name).items():
+            np.testing.assert_allclose(getattr(chunked, name)[k].numpy(), v.numpy(), atol=5e-6,
+                                       rtol=1e-4, err_msg=k)
+
+
+def test_disc_chunks_round_down_to_a_divisor():
+    for n, mb, want in ((8, 2, 4), (6, 4, 2), (960, 240, 4), (8, 0, 1), (8, 8, 1), (8, 9, 1),
+                        (7, 3, 7)):
+        assert disc_chunks(n, mb) == want, (n, mb)
+
+
+def test_step_randoms_are_a_function_of_seed_and_step():
+    """One generator seeded from SeedSequence([seed, step]): the mask first,
+    then u_real, u_fake, u_g; the same (seed, step) draws the same values,
+    another step other values."""
+    cfg = port_config(tiny_config(scheduled_sampling=True, ss_start_prob=0.5,
+                                  d_augment="color,cutout"))
+    r = draw_step_randoms(cfg, 7, 3, 4, 5, "cpu")
+    gen = torch.Generator().manual_seed(batch_seed(7, 3))
+    p = scheduled_sampling_prob(3, cfg.train)
+    assert torch.equal(r.use_pred, torch.rand((4, 5), generator=gen) < p)
+    for u in (r.u_real, r.u_fake, r.u_g):
+        assert torch.equal(u, torch.rand((20, 5), generator=gen))
+    again, other = draw_step_randoms(cfg, 7, 3, 4, 5, "cpu"), draw_step_randoms(cfg, 7, 4, 4, 5, "cpu")
+    assert torch.equal(again.u_g, r.u_g) and not torch.equal(other.u_g, r.u_g)
+    assert draw_step_randoms(port_config(tiny_config()), 7, 3, 4, 5, "cpu") == StepRandoms()
+
+
+def test_the_step_draws_from_seed_plus_one(monkeypatch):
+    """Without ``seed`` the step draws from train.seed + 1, the key the JAX
+    loop passes; the loop passes it too."""
+    jc = tiny_config(seed=4, d_augment="color")
+    cfg = port_config(jc)
+    batch = np_batch(make_batch(jc))
+    fresh = lambda: port_state(jc, jax_init_state(jc, jax.random.PRNGKey(0)))  # noqa: E731
+    _, m_default = make_train_step(cfg, device="cpu")(fresh(), batch)
+    _, m_five = make_train_step(cfg, device="cpu", seed=5)(fresh(), batch)
+    _, m_six = make_train_step(cfg, device="cpu", seed=6)(fresh(), batch)
+    assert float(m_default["d_loss"]) == float(m_five["d_loss"]) != float(m_six["d_loss"])
+
+
+def test_ema_needs_its_tree():
+    cfg = port_config(tiny_config(ema_decay=0.5))
+    state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(state.g_ema[k], v) for k, v in state.g_params.items())
+    assert all(state.g_ema[k].data_ptr() != v.data_ptr() for k, v in state.g_params.items())
+    state.g_ema = None
+    with pytest.raises(ValueError, match="no g_ema"):
+        make_train_step(cfg, device="cpu")(state, np_batch(make_batch(tiny_config())))
 
 
 @pytest.mark.parametrize("engine", ["ad", "fused", "pallas"])
