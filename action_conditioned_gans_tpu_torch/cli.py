@@ -1,12 +1,17 @@
-"""CLI: ``python -m action_conditioned_gans_tpu_torch configs|serve|train|bench``.
+"""CLI: ``python -m action_conditioned_gans_tpu_torch
+configs|serve|train|bench|export|sample|eval``.
 
-``serve --artifact g.npz`` serves a generator exported by the JAX package's
-``export`` (or the port's ``infer.export_generator``). ``train`` trains a
-preset on synthetic clips made on the device, with JSON metric lines,
-checkpoints under ``--workdir`` and resume; ``bench`` prints one JSON line
-for the preset's training step. Each runs on the GPU, or on the CPU with
-``--device cpu``. The JAX package's ``sample``, ``eval``, ``export``,
-``make-data``, ``profile-report`` and ``doctor`` are not ported yet.
+``train`` trains a preset on synthetic clips made on the device, with JSON
+metric lines, checkpoints under ``--workdir`` and resume; ``bench`` prints
+one JSON line for the preset's training step. ``export`` writes what a
+checkpoint holds as a generator ``.npz`` archive or, with ``--format pt2``,
+as an AOT artifact (``aot.py``); ``sample`` writes rollout PNGs and GIFs and
+prints their metrics, ``eval`` prints held-out metrics. ``serve`` answers
+HTTP requests from an ``.npz`` archive (the port's or the JAX package's
+``export``), an AOT artifact, or ``--workdir``'s latest checkpoint. Each
+runs on the GPU, or on the CPU with ``--device cpu``. The JAX package's
+``make-data``, ``profile-report`` and ``doctor`` are not ported yet (ROADMAP
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -46,11 +51,25 @@ def apply_overrides(cfg: Config, overrides: List[str]) -> Config:
     return cfg
 
 
+def _rollout_lengths(raw: str) -> List[int]:
+    """--rollout-length value: 'T' or 'T1,T2,...' -> list of horizons."""
+    try:
+        out = [int(x) for x in raw.split(",") if x.strip()]
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{raw!r} is not an int or comma-list of ints")
+    if any(t < 0 for t in out):
+        raise argparse.ArgumentTypeError(f"negative horizon in {raw!r}")
+    return [t for t in out if t > 0]
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="acgan-torch", description=__doc__)
-    p.add_argument("command", choices=["configs", "serve", "train", "bench"])
+    p.add_argument("command",
+                   choices=["configs", "serve", "train", "bench", "export", "sample", "eval"])
     p.add_argument("--preset", default="config1", help="preset name")
-    p.add_argument("--workdir", default=None, help="train: checkpoints, TensorBoard, profile")
+    p.add_argument("--workdir", default=None,
+                   help="train: checkpoints, TensorBoard, profile; serve / export / sample / "
+                   "eval: the checkpoints to read")
     p.add_argument("--steps", type=int, default=None,
                    help="train: total steps; bench: steps behind the timed windows")
     p.add_argument("--no-resume", action="store_true", help="train: ignore checkpoints")
@@ -60,7 +79,21 @@ def build_parser() -> argparse.ArgumentParser:
         "--set", dest="overrides", action="append", default=[], metavar="SEC.FIELD=VAL",
         help="config override, repeatable",
     )
-    p.add_argument("--artifact", default=None, help="serve: a generator .npz archive")
+    p.add_argument("--out", default=None,
+                   help="export: the artifact's path; sample: the image directory")
+    p.add_argument("--num-clips", type=int, default=8, help="sample: held-out clips rolled out")
+    p.add_argument("--ema", action="store_true",
+                   help="serve / export / sample / eval with the EMA generator weights (needs a "
+                   "checkpoint trained with train.ema_decay > 0)")
+    p.add_argument("--format", choices=["npz", "pt2", "stablehlo"], default="npz",
+                   help="export: 'npz' = weights + config archive (Predictor.from_npz); 'pt2' = "
+                   "the AOT program through torch.export (aot.AotPredictor)")
+    p.add_argument("--rollout-length", type=_rollout_lengths, default=[], metavar="T[,T...]",
+                   help="export --format pt2: also export T-step rollout programs, one per "
+                   "horizon")
+    p.add_argument("--artifact", default=None,
+                   help="serve: a generator .npz archive or an AOT artifact; omitted = restore "
+                   "the latest checkpoint from --workdir")
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     p.add_argument("--host", default="127.0.0.1", help="serve: bind address")
     p.add_argument("--port", type=int, default=8700, help="serve: TCP port (0 = any free)")
@@ -93,11 +126,93 @@ def main(argv=None) -> int:
 
         print(json.dumps(run_bench(cfg, steps=args.steps or 30, device=args.device)), flush=True)
         return 0
-    if not args.artifact:
-        parser.error("serve needs --artifact <file>.npz")
-    from action_conditioned_gans_tpu_torch.serve import build_predictor, serve_forever
+    if args.command == "serve":
+        # An explicit source: cfg.workdir has a default, and a server standing
+        # up on whatever a past run left there is never what was meant.
+        if not args.artifact and not args.workdir:
+            parser.error("serve needs --artifact or an explicit --workdir")
+        from action_conditioned_gans_tpu_torch.serve import build_predictor, serve_forever
 
-    serve_forever(build_predictor(args, cfg), args.host, args.port)
+        serve_forever(build_predictor(args, cfg), args.host, args.port)
+        return 0
+    return _from_checkpoint(parser, args, cfg)
+
+
+def _from_checkpoint(parser, args, cfg: Config) -> int:
+    """``export``, ``sample`` and ``eval`` over the latest checkpoint in
+    ``<workdir>/checkpoints`` (or the init weights, with a warning, for
+    ``sample`` / ``eval`` when there is none)."""
+    if args.format == "stablehlo":
+        parser.error("--format stablehlo is the JAX package's artifact; the port exports "
+                     "its AOT program with --format pt2")
+    if args.command == "export" and args.rollout_length and args.format != "pt2":
+        # Refused before the restore: an npz holds weights, not programs.
+        parser.error("--rollout-length requires --format pt2 "
+                     "(the npz archive holds weights, not programs)")
+    import torch
+
+    from action_conditioned_gans_tpu_torch.config import resolve_device
+    from action_conditioned_gans_tpu_torch.train.state import (
+        init_state,
+        restore_state,
+        state_to_device,
+        state_tree,
+    )
+    from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
+
+    dev = resolve_device(args.device)
+    if args.ema and cfg.train.ema_decay <= 0:
+        # The template must hold a g_ema tree to receive the checkpoint's.
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, ema_decay=0.999))
+    state = init_state(cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+    ckpt = CheckpointManager(f"{cfg.workdir}/checkpoints")
+    step = ckpt.latest_step()
+    if step is not None:
+        if args.ema:
+            # Strict: the checkpoint must hold EMA weights of its own.
+            try:
+                state = state_to_device(ckpt.restore(state_tree(state, cfg)), dev)
+            except (ValueError, RuntimeError, OSError) as e:  # a tree, file or load error
+                parser.error("--ema needs a checkpoint trained with train.ema_decay > 0 "
+                             f"(restore failed: {e})")
+        else:
+            state = restore_state(cfg, ckpt, template=state)
+        print(f"[acgan] loaded checkpoint step {step}", flush=True)
+    elif args.ema or args.command == "export":
+        # Exporting or EMA-sampling the init weights is never what was meant.
+        parser.error(f"{'--ema' if args.ema else 'export'} needs a checkpoint under "
+                     f"{cfg.workdir}/checkpoints (none found)")
+    else:
+        print("[acgan] WARNING: no checkpoint found; sampling from init", flush=True)
+    if args.ema:
+        state.g_params = state.g_ema
+    if args.command == "export":
+        if args.format == "pt2":
+            from action_conditioned_gans_tpu_torch.aot import export_aot
+
+            out = args.out or f"{cfg.workdir}/generator.aot"
+            meta = export_aot(cfg, state.g_params, out, rollout_length=args.rollout_length,
+                              device=dev)
+            # An artifact serves on any device (AotPredictor moves it at load).
+            print(json.dumps({"exported": out, "ema": bool(args.ema), "format": "pt2",
+                              "platforms": ["cpu", "cuda"],
+                              "rollout_lengths": meta["rollout_lengths"],
+                              "bytes": meta["bytes"]}), flush=True)
+            return 0
+        from action_conditioned_gans_tpu_torch.infer import export_generator
+
+        out = args.out or f"{cfg.workdir}/generator.npz"
+        export_generator(cfg, state.g_params, out)
+        print(json.dumps({"exported": out, "ema": bool(args.ema)}), flush=True)
+        return 0
+    from action_conditioned_gans_tpu_torch.train.sample import evaluate, sample
+
+    if args.command == "sample":
+        metrics = sample(cfg, state, args.out or f"{cfg.workdir}/samples",
+                         num_clips=args.num_clips)
+    else:
+        metrics = evaluate(cfg, state)
+    print(json.dumps(metrics), flush=True)
     return 0
 
 

@@ -7,7 +7,9 @@ Each conv block is routed as the reference routes it (``ops/envelope.py``):
 then :func:`norm_act`, whose GroupNorm goes to the standalone
 GroupNorm+activation kernel. The route depends on shapes and dtype only, so
 it is the same on the CPU and on the card. ``ROUTES`` counts the routes
-taken.
+taken: "fused" and "split" per conv block, and "group_plain" per GroupNorm
+that :func:`norm_act` sends to the plain composite because it lies off the
+standalone kernel's envelope.
 
 The tensor's device decides the rest: a CUDA tensor goes to the Hopper
 kernel of the op or the call raises; a CPU tensor takes the plain version.
@@ -24,7 +26,7 @@ from action_conditioned_gans_tpu_torch.ops import envelope, reference
 from action_conditioned_gans_tpu_torch.ops.kernels import conv as _conv
 from action_conditioned_gans_tpu_torch.ops.kernels import norm_act as _norm_act
 
-ROUTES = {"fused": 0, "split": 0}
+ROUTES = {"fused": 0, "split": 0, "group_plain": 0}
 
 
 def reset_routes() -> None:
@@ -65,17 +67,19 @@ def norm_act(
     """Normalization + affine + activation. GroupNorm inside the reference's
     kernel envelope goes to the GroupNorm+activation kernel; kinds "none"
     (bias, cast, activation) and "batch" are the plain composite, which no
-    kernel computes in the reference either."""
+    kernel computes in the reference either.
+
+    A GroupNorm off that envelope (fewer than 32 channels, or one sample's
+    float32 plane, twice, past 10 MiB) is ``reference.norm_act`` on every
+    device, counted in ``ROUTES["group_plain"]``. That is the route the
+    reference takes there (its XLA composite: float32 statistics, the affine,
+    the cast to the compute dtype, then the activation). It is not a fallback
+    from a kernel: the reference runs no kernel for these calls either."""
     if kind == "group":
         if envelope.group_norm_act_supported(x.shape):
             return _norm_act.group_norm_act(x, scale, bias, groups=groups, eps=eps, act=act,
                                             leak=leak)
-        if x.is_cuda:
-            raise NotImplementedError(
-                f"GroupNorm over x{tuple(x.shape)} is off the group_norm_act kernel's "
-                "envelope (C >= 32 and one sample's float32 plane, twice, within 10 MiB); "
-                "the reference runs XLA there and the port has no kernel for it"
-            )
+        ROUTES["group_plain"] += 1
     return reference.norm_act(
         x, scale, bias, kind=kind, groups=groups, eps=eps, act=act, leak=leak
     )

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from action_conditioned_gans_tpu_torch.ops import reference
 from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, act_bwd, resolve_groups, same_pad
-from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd
+from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd, library
 
 LAUNCHES = {"conv_norm_act": 0, "conv_transpose_norm_act": 0}
 # By the value of acg_conv_path / acg_conv_transpose_path.
@@ -237,7 +237,14 @@ def _forward(x, w, scale, bias, o: _Opts):
 
 
 def _forward_no_grad(x, w, scale, bias, o: _Opts):
-    """The output alone: the serving path keeps no residual."""
+    """The output alone: the serving path keeps no residual. While
+    ``torch.export`` traces, the call is the ``acgan::`` custom op
+    (``ops/kernels/library.py``), whose CUDA and CPU implementations are the
+    two branches below; run live, it skips the op's dispatch, about 20 us of
+    host time a call on a serving path the host bounds."""
+    if torch.compiler.is_exporting():
+        op = library.conv_transpose_norm_act if o.transpose else library.conv_norm_act
+        return op(x, w, scale, bias, o.stride, o.kind, o.groups, o.eps, o.act, o.leak)
     if x.is_cuda:
         return _launch(x, w, scale, bias, o)[0]
     return _plain(x, w, scale, bias, o)[0]

@@ -41,7 +41,7 @@ import torch
 
 from action_conditioned_gans_tpu_torch.ops import reference
 from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, resolve_groups
-from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd
+from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd, library
 from action_conditioned_gans_tpu_torch.ops.kernels.gn_cluster import (  # noqa: F401 (the tests read these here)
     FILL_BLOCKS, NT, SMEM_MAX, SMS, TWO_PER_SM, GnPlan, choose_plan, plan_at, share_rows,
 )
@@ -180,4 +180,6 @@ def group_norm_act(
     """GroupNorm -> affine -> activation over NHWC ``x``, in ``x``'s dtype."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, scale, bias)):
         return GroupNormActFn.apply(x, scale, bias, _Opts(groups, float(eps), act, float(leak)))
+    if torch.compiler.is_exporting():  # the acgan:: op, as conv._forward_no_grad
+        return library.group_norm_act(x, scale, bias, groups, float(eps), act, float(leak))
     return group_norm_act_with_stats(x, scale, bias, groups=groups, eps=eps, act=act, leak=leak)[0]

@@ -170,18 +170,22 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 0) -> ThreadingH
 
 
 def build_predictor(args, cfg):
-    """CLI glue: ``--artifact foo.npz`` loads the portable weights archive.
-    The AOT artifact and checkpoint restore are not ported yet."""
+    """CLI glue: ``--artifact foo.npz`` loads the portable weights archive,
+    any other ``--artifact`` an AOT program (``aot.AotPredictor``, no model
+    code); with no artifact the live Predictor restores ``--workdir``'s
+    latest checkpoint (its EMA weights with ``--ema``)."""
     from action_conditioned_gans_tpu_torch.infer import Predictor
 
+    device = getattr(args, "device", None)
     artifact = getattr(args, "artifact", None)
-    if artifact and artifact.endswith(".npz"):
-        return Predictor.from_npz(artifact, cfg=cfg, device=getattr(args, "device", None))
-    source = f"--artifact {artifact}" if artifact else "--workdir (checkpoint restore)"
-    raise NotImplementedError(
-        f"serving from {source} is not ported yet; export the generator as "
-        "an .npz archive and pass --artifact <file>.npz"
-    )
+    if artifact:
+        if artifact.endswith(".npz"):
+            return Predictor.from_npz(artifact, cfg=cfg, device=device)
+        from action_conditioned_gans_tpu_torch.aot import AotPredictor
+
+        return AotPredictor(artifact, device=device)
+    return Predictor.from_checkpoint(cfg, args.workdir, use_ema=bool(getattr(args, "ema", False)),
+                                     device=device)
 
 
 def serve_forever(predictor, host: str, port: int) -> None:

@@ -1,18 +1,19 @@
-"""Held-out rollouts and their metrics for the training loop (port of the
-parts of the JAX package's ``train/sample.py`` the loop calls).
+"""Sampling and evaluation (port of the JAX package's ``train/sample.py``).
 
 ``make_rollout_fn`` is the fully autoregressive rollout (every step after
 the first conditions on the previous prediction: scheduled sampling at
 probability 1), run with the training generator's parameters.
 ``eval_metrics`` computes L2 / L1 / PSNR / SSIM on the host in numpy, as the
-JAX package does; the port keeps its own copy of the SSIM helpers. Sample
-export (``sample``, ``evaluate``, ``utils/images.py``) is not ported yet
-(ROADMAP Queue 1 item 3).
+JAX package does; the port keeps its own copy of the SSIM helpers.
+``evaluate`` averages them over held-out batches; ``sample`` also writes PNG
+grids, GIFs and comparison strips (``utils/images.py``). Both run on the
+device of the state's parameters.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import os
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -23,6 +24,12 @@ from action_conditioned_gans_tpu_torch.data.pipeline import FILE_SOURCES
 from action_conditioned_gans_tpu_torch.data.synthetic import SyntheticClips
 from action_conditioned_gans_tpu_torch.infer import rollout_scan
 from action_conditioned_gans_tpu_torch.models import Generator
+from action_conditioned_gans_tpu_torch.train.state import TrainState
+from action_conditioned_gans_tpu_torch.utils.images import (
+    save_gif,
+    save_image_grid,
+    save_rollout_strip,
+)
 
 
 def make_rollout_fn(cfg: Config, device=None):
@@ -113,3 +120,48 @@ def held_out_batches(cfg: Config, batch_size: int, horizon: int, seed: int,
         )
     return iter(SyntheticClips(batch_size, horizon + 1, cfg.model.image_size,
                                cfg.model.action_dim, seed=seed, device=device))
+
+
+def _device(state: TrainState) -> torch.device:
+    return next(iter(state.g_params.values())).device
+
+
+def evaluate(cfg: Config, state: TrainState, num_batches: int = 8, batch_size: int = 16,
+             horizon: Optional[int] = None, seed: int = 1234) -> Dict[str, float]:
+    """Mean L1 / L2 / PSNR / SSIM of fully autoregressive rollouts over
+    ``num_batches`` held-out batches (no image export), with
+    ``eval_batches`` and ``eval_horizon``."""
+    horizon = horizon or max(cfg.train.rollout_length, 1)
+    dev = _device(state)
+    fn = make_rollout_fn(cfg, dev)
+    stream = held_out_batches(cfg, batch_size, horizon, seed, device=dev)
+    acc: Dict[str, float] = {}
+    for _ in range(num_batches):
+        batch = next(stream)
+        m = eval_metrics(fn(state.g_params, batch), batch["frames"][:, 1:])
+        for k, v in m.items():
+            acc[k] = acc.get(k, 0.0) + v / num_batches
+    acc["eval_batches"] = num_batches
+    acc["eval_horizon"] = horizon
+    return acc
+
+
+def sample(cfg: Config, state: TrainState, out_dir: str, num_clips: int = 8,
+           horizon: Optional[int] = None, seed: int = 1234) -> Dict[str, float]:
+    """Roll out ``num_clips`` held-out clips, write ``pred_final_frame.png``
+    and ``gt_final_frame.png`` (grids of the last frames) and, for the first
+    four clips, ``rollout_{i}.gif`` and ``strip_{i}.png`` (ground truth over
+    prediction); return their eval metrics."""
+    os.makedirs(out_dir, exist_ok=True)
+    horizon = horizon or max(cfg.train.rollout_length, 1)
+    dev = _device(state)
+    batch = next(held_out_batches(cfg, num_clips, horizon, seed, device=dev))
+    preds = _host(make_rollout_fn(cfg, dev)(state.g_params, batch))
+    targets = _host(batch["frames"][:, 1:])
+
+    save_image_grid(os.path.join(out_dir, "pred_final_frame.png"), preds[:, -1])
+    save_image_grid(os.path.join(out_dir, "gt_final_frame.png"), targets[:, -1])
+    for i in range(min(num_clips, 4)):
+        save_gif(os.path.join(out_dir, f"rollout_{i}.gif"), preds[i])
+        save_rollout_strip(os.path.join(out_dir, f"strip_{i}.png"), targets[i], preds[i])
+    return eval_metrics(preds, targets)

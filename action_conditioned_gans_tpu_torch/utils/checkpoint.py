@@ -109,15 +109,18 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, str(old)))
         return True
 
-    def restore(self, template: Mapping[str, Any], step: Optional[int] = None) -> dict:
-        """Load ``step`` (the latest when None) onto the device of the
-        template's tensors. Raises naming the first key, shape or dtype that
-        differs from ``template``; strings and ints are taken from disk."""
+    def restore(self, template: Mapping[str, Any], step: Optional[int] = None,
+                device=None) -> dict:
+        """Load ``step`` (the latest when None) onto ``device``, or the device
+        of the template's tensors when None (a template on the meta device
+        then needs a ``device``). Raises naming the first key, shape or dtype
+        that differs from ``template``; strings and ints are taken from disk."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.directory}")
-        ref = _first_tensor(template)
-        device = ref.device if ref is not None else torch.device("cpu")
+        if device is None:
+            ref = _first_tensor(template)
+            device = ref.device if ref is not None else torch.device("cpu")
         state = torch.load(os.path.join(self.directory, str(step), _FILE), map_location=device,
                            weights_only=True)
         _check_like(state, template)

@@ -152,11 +152,45 @@ Phases, each of which fails the run (non-zero exit, no final line):
     disc_microbatch=2 against 0 within the JAX package's bars (losses rtol
     1e-5 / atol 1e-6, parameters atol 5e-6 / rtol 1e-4).
 
+15. What ``train`` writes, served, in phase 13's directory: config4's
+    step-32 checkpoint (EMA, state_dim 3, preset widths) restored by
+    ``Predictor.from_checkpoint`` and with ``use_ema=True``, bit for bit what
+    Predictors on the stored g_params / g_ema give (B=64 predict, T=10 B=16
+    rollout); ``serve --workdir --ema --port 0`` in a process of its own,
+    its /healthz, /predict and /rollout equal to the direct calls; ``export``
+    to npz read back by ``from_npz`` with equal bits; ``export --format pt2
+    --rollout-length 10``: the export traces EXPECTED["config4 serving"]'s
+    routes 11 times and launches nothing, and ``AotPredictor`` on cuda
+    (counts set to 0 just before, read just after) launches
+    EXPECTED["config4 serving"] x 11 and gives the live predictor's bits;
+    ``sample --num-clips 8`` writes its PNGs and GIFs (signatures checked)
+    and ``eval`` gives finite metrics. config5 from seeded weights, its AOT
+    program (predict and T=4) exported once on the CPU and once on cuda,
+    both served on cuda: EXPECTED["config5 serving"] x 5 launches (kernel 3
+    7 a generator call) and the live predictor's bits at B=32 and T=4 B=8.
+    The export seconds, the artifacts' bytes, ``sample``'s and ``eval``'s
+    seconds, and the AOT and live predictors' p50 predict ms (config1
+    B=128, config5 B=32; CUDA events around each call, in turns live, AOT,
+    AOT, live), beside the card's name and power limit.
+16. The repairs of ROADMAP Queue 3. Fault 1: config5 at 512x512 with
+    g_levels=6 and d_levels=7 (FAULT1_OVERRIDES), bfloat16 and float32, B=2:
+    one predict and one training step (T=2) on cuda; the GroupNorms off
+    kernel 3's envelope take the plain composite, counted in
+    ROUTES["group_plain"] (FAULT1_GROUP_PLAIN, derived on meta tensors by
+    tests/test_torch_routes.py), each within 1e-4 abs + 1e-4 rel (float32)
+    or 3e-2 (bfloat16) of ``reference.norm_act`` in float32 on the same
+    input; losses finite; peak memory printed. Fault 2: config2 (T=10, B=16,
+    k=32) through ``train`` for 32 steps (counts set to 0 just before, read
+    just after: EXPECTED["config2 step"] x 32 plus the held-out rollout's 10
+    generator calls), then as phase 10 one counted step (12 / 3 / 0 / 11),
+    its distinct conv and kernel-4 calls at phases 10 and 11's bars, 20
+    timed steps and a profile.
+
 Then a ``kernels`` JSON line (per kernel: launches summed over every main
-path, the config4 and config5 steps and the config4 loop included; max
-|err|, kernel, plain, bound and library times; kernel 4's over the config1
-step's calls, and its config3 step's sums beside them), then the final line
-``{"ok": true, "device": {...}}``.
+path, the config2, config4 and config5 steps, the config2 and config4 loops
+and the AOT programs included; max |err|, kernel, plain, bound and library
+times; kernel 4's over the config1 step's calls, and its config3 step's sums
+beside them), then the final line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -169,6 +203,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -216,6 +251,14 @@ EXPECTED = {
                           gn_act_bwd=11),
                      dict(conv_norm_act=dict(wgmma=9, wmma=3),
                           conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (15, 0), 0),
+    # config2 (T=10, B=16): one generator call over the 160 transitions of the
+    # teacher-forced fold, D at 320 (update) and 160 (G head): config1's layers
+    # at other batches. Its generator is config1's (the same ModelConfig), so
+    # its held-out rollouts count as "config1 serving".
+    "config2 step": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
+                          gn_act_bwd=11),
+                     dict(conv_norm_act=dict(wgmma=9, wmma=3),
+                          conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (15, 0), 0),
     "config5 serving": (dict(conv_norm_act=2, conv_transpose_norm_act=0, group_norm_act=7,
                              gn_act_bwd=0),
                         dict(conv_norm_act=dict(wgmma=2)), (2, 9)),
@@ -249,6 +292,14 @@ CONFIG4_OVERRIDES = ["train.ema_decay=0.999", "train.d_augment=color,translation
 # Phase 14's override of config5 (remat, time chunks of 2, B=32, T=30): D in
 # chunks of 240 of the 960 transitions, so that one card holds the step.
 CONFIG5_OVERRIDES = ["train.disc_microbatch=240"]
+# Phase 16's model for ROADMAP Queue 3 fault 1: config5 at 512x512 with a
+# sixth G level and a seventh D level, B=2, T=2. Some of its GroupNorms lie
+# off kernel 3's envelope and take the plain composite (ROUTES["group_plain"]):
+# (in one generator call, in one training step with remat), derived on meta
+# tensors by tests/test_torch_routes.py.
+FAULT1_OVERRIDES = ["model.image_size=512", "model.g_levels=6", "model.d_levels=7",
+                    "train.batch_size=2", "train.rollout_length=2"]
+FAULT1_GROUP_PLAIN = (3, 12)  # in bfloat16 and in float32 alike
 # A step path's fourth field: its kernel-4 calls that read a bfloat16 y (the
 # split layers' backward; kernel 3's launches less the remat recompute's).
 # tests/test_golden.py's tolerances on (d_loss, g_loss, g_recon): (atol, rtol).
@@ -625,11 +676,22 @@ def check_runs(label, launches, runs):
     """The launch and route counts of a run made of ``runs`` ({EXPECTED path:
     generator calls or training steps}) against the sum of EXPECTED over it."""
     from action_conditioned_gans_tpu_torch.ops import api
-    from action_conditioned_gans_tpu_torch.ops.kernels import conv
 
     say(f"main path {label}: launches {launches}, routes {api.ROUTES} over "
         + ", ".join(f"{n} {'steps' if 'step' in p else 'generator calls'} of {p}"
                     for p, n in runs.items()))
+    check_launches(label, launches, runs)
+    want = {route: sum(EXPECTED[p][2][i] * n for p, n in runs.items())
+            for i, route in enumerate(("fused", "split"))}
+    # No preset has a GroupNorm off kernel 3's envelope.
+    check(api.ROUTES == {**want, "group_plain": 0}, f"{label}: routes {api.ROUTES}, want {want}")
+
+
+def check_launches(label, launches, runs):
+    """Kernels 1-4's launches, and kernels 1-2's by mainloop, against the sum
+    of EXPECTED over ``runs``."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import conv
+
     for name in KERNEL_INFO:
         want = sum(EXPECTED[p][0][name] * n for p, n in runs.items())
         check(launches[name] == want, f"{label}: {name} launched {launches[name]} times, want {want}")
@@ -637,9 +699,6 @@ def check_runs(label, launches, runs):
     want = {k: sum(EXPECTED[p][1].get(k.split(":")[0], {}).get(k.split(":")[1], 0) * n
                    for p, n in runs.items()) for k in by}
     check(by == want, f"{label}: kernels 1-2 by mainloop {by}, want {want}")
-    want = {route: sum(EXPECTED[p][2][i] * n for p, n in runs.items())
-            for i, route in enumerate(("fused", "split"))}
-    check(api.ROUTES == want, f"{label}: routes {api.ROUTES}, want {want}")
 
 
 def phase_serving(predictor, path, batch, horizon, roll_batch, timed=20):
@@ -1305,7 +1364,8 @@ def phase_split_autograd(batch=4):
 
         api.reset_routes()
         out_k, got = grads(lambda *a: api.conv_norm_act(*a, stride=2, **kw))
-        check(api.ROUTES == {"fused": 0, "split": 1}, f"{label}: not on the split route")
+        check(api.ROUTES == {"fused": 0, "split": 1, "group_plain": 0},
+              f"{label}: not on the split route")
         check(out_k.grad_fn.name() == "GroupNormActFnBackward", f"{label}: not through GroupNormActFn")
         _, want = grads(lambda xx, ww, ss, bb: reference.norm_act(
             reference.conv2d(xx, ww, stride=2), ss, bb, **kw))
@@ -1591,7 +1651,6 @@ def phase_loop(smi):
     resume against an uninterrupted run, SIGTERM in a process of its own,
     the data's and a save's times, and the `bench` line."""
     import re
-    import tempfile
 
     from action_conditioned_gans_tpu_torch.bench import run_bench
     from action_conditioned_gans_tpu_torch.cli import apply_overrides
@@ -1768,19 +1827,17 @@ def phase_rollout_f32():
     check(e_served <= 1e-5 and e_folded <= 1e-5, "the training rollout differs from its references")
 
 
-def phase_config4(smi, totals):
+def phase_config4(smi, totals, tmp):
     """Phase 13: config4 training at full width (bf16, B=64, T=10, k=16) with
     EMA, D augmentation and a scheduled-sampling mix: the `train` subcommand
     for 32 steps (counts set to 0 just before and read just after), a resume
     from its step-16 checkpoint to 32 held bit for bit against it (g_ema
     included, cudnn.deterministic on), its metric lines; then one counted
     step, every distinct kernel call of it against its plain version, 20
-    timed steps and a profile; then the float32 rollout checks."""
-    import tempfile
-
+    timed steps and a profile; then the float32 rollout checks. The runs
+    write under ``tmp``; phase 15 serves what they wrote."""
     from action_conditioned_gans_tpu_torch.cli import apply_overrides
     from action_conditioned_gans_tpu_torch.config import get_preset
-    from action_conditioned_gans_tpu_torch.ops.kernels import build
     from action_conditioned_gans_tpu_torch.train.rollout import scheduled_sampling_prob
 
     t_phase = time.perf_counter()
@@ -1790,42 +1847,41 @@ def phase_config4(smi, totals):
         f"T={horizon}, k={cfg.train.steps_per_call})")
     args = config4_loop_args()
     deterministic = torch.backends.cudnn.deterministic
-    with tempfile.TemporaryDirectory(prefix="loop-c4-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
-        whole, resumed = os.path.join(tmp, "whole"), os.path.join(tmp, "resumed")
-        torch.backends.cudnn.deterministic = True
-        try:
-            reset_launches()
-            out = run_cli(["train", *args, "--workdir", whole, "--steps", "32"])
-            launches = read_launches()
-            # 32 steps, and at each sample_every boundary two held-out
-            # rollouts (the parameters and their EMA) of T generator calls
-            # at B=8; read before the resumed run adds its own.
-            n_evals = sum(1 for r in metric_lines(out) if "eval_l2" in r)
-            check_runs("config4 train loop", launches,
-                       {"config4 step": 32, "config4 serving": 2 * n_evals * horizon})
-            os.makedirs(os.path.join(resumed, "checkpoints"))
-            shutil.copytree(os.path.join(whole, "checkpoints", "16"),
-                            os.path.join(resumed, "checkpoints", "16"))
-            again = run_cli(["train", *args, "--workdir", resumed, "--steps", "32"])
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
-        check("resumed from checkpoint at step 16" in again, "the resumed run did not start at 16")
-        lines = metric_lines(out)
-        steps = [r for r in lines if "ss_prob" in r]
-        evals = [r for r in lines if "eval_l2" in r]
-        check([r["step"] for r in steps] == [16, 32] and [r["step"] for r in evals] == [16, 32],
-              f"metric lines at steps {[r['step'] for r in lines]}")
-        check(all(np.isfinite(v) for r in lines for v in r.values()), "a non-finite metric line")
-        for r in steps:
-            want = float(np.float32(scheduled_sampling_prob(r["step"] - 1, cfg.train)))
-            check(r["ss_prob"] == want, f"ss_prob {r['ss_prob']} at step {r['step']}, want {want}")
-        check(all({"eval_l2_ema", "eval_psnr_ema", "eval_ssim_ema"} <= set(r) for r in evals),
-              "the held-out lines lack the EMA metrics")
-        check(checkpoint_steps(whole) == [16, 32], f"checkpoints {checkpoint_steps(whole)}")
-        same, max_diff, where = compare_states(final_params(whole, 32), final_params(resumed, 32))
-        say(f"config4 resume: 16 + 16 steps against 32 uninterrupted, cudnn.deterministic=True "
-            f"(g_ema included): bit-identical {same}, max |d| {max_diff:.3e} at {where}")
-        check(same, f"the resumed config4 run differs: {max_diff:.3e} at {where}")
+    whole, resumed = os.path.join(tmp, "whole"), os.path.join(tmp, "resumed")
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        out = run_cli(["train", *args, "--workdir", whole, "--steps", "32"])
+        launches = read_launches()
+        # 32 steps, and at each sample_every boundary two held-out
+        # rollouts (the parameters and their EMA) of T generator calls
+        # at B=8; read before the resumed run adds its own.
+        n_evals = sum(1 for r in metric_lines(out) if "eval_l2" in r)
+        check_runs("config4 train loop", launches,
+                   {"config4 step": 32, "config4 serving": 2 * n_evals * horizon})
+        os.makedirs(os.path.join(resumed, "checkpoints"))
+        shutil.copytree(os.path.join(whole, "checkpoints", "16"),
+                        os.path.join(resumed, "checkpoints", "16"))
+        again = run_cli(["train", *args, "--workdir", resumed, "--steps", "32"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check("resumed from checkpoint at step 16" in again, "the resumed run did not start at 16")
+    lines = metric_lines(out)
+    steps = [r for r in lines if "ss_prob" in r]
+    evals = [r for r in lines if "eval_l2" in r]
+    check([r["step"] for r in steps] == [16, 32] and [r["step"] for r in evals] == [16, 32],
+          f"metric lines at steps {[r['step'] for r in lines]}")
+    check(all(np.isfinite(v) for r in lines for v in r.values()), "a non-finite metric line")
+    for r in steps:
+        want = float(np.float32(scheduled_sampling_prob(r["step"] - 1, cfg.train)))
+        check(r["ss_prob"] == want, f"ss_prob {r['ss_prob']} at step {r['step']}, want {want}")
+    check(all({"eval_l2_ema", "eval_psnr_ema", "eval_ssim_ema"} <= set(r) for r in evals),
+          "the held-out lines lack the EMA metrics")
+    check(checkpoint_steps(whole) == [16, 32], f"checkpoints {checkpoint_steps(whole)}")
+    same, max_diff, where = compare_states(final_params(whole, 32), final_params(resumed, 32))
+    say(f"config4 resume: 16 + 16 steps against 32 uninterrupted, cudnn.deterministic=True "
+        f"(g_ema included): bit-identical {same}, max |d| {max_diff:.3e} at {where}")
+    check(same, f"the resumed config4 run differs: {max_diff:.3e} at {where}")
     launches_step, calls, conv_calls, _ = phase_training(cfg, "config4 step")
     phase_train_conv_parity(conv_calls, totals)
     phase_gn_bwd_call_parity(calls, "config4 step", totals["gn_act_bwd"])
@@ -1963,6 +2019,364 @@ def phase_config5(smi, totals):
     return launches
 
 
+# -- phases 15 and 16: what `train` writes, served; the repairs ----------------------
+
+PNG_SIGNATURE, GIF_SIGNATURE = b"\x89PNG\r\n\x1a\n", b"GIF89a"
+
+
+def p50_ms(fn, iters=100, warmup=3):
+    """The median of ``iters`` calls of ``fn``, each between two CUDA events
+    (host dispatch included where the host is the limit)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def serving_inputs(cfg, batch, horizon, roll_batch, seed):
+    """(predict args, rollout args) as numpy arrays for ``cfg``'s generator."""
+    m = cfg.model
+    rng = np.random.default_rng(seed)
+    frame = np.tanh(rng.standard_normal((batch, m.image_size, m.image_size, 3))).astype(np.float32)
+    action = rng.standard_normal((batch, m.action_dim)).astype(np.float32)
+    actions = rng.standard_normal((roll_batch, horizon, m.action_dim)).astype(np.float32)
+    state = states = None
+    if m.state_dim:
+        state = rng.standard_normal((batch, m.state_dim)).astype(np.float32)
+        states = rng.standard_normal((roll_batch, horizon, m.state_dim)).astype(np.float32)
+    return (frame, action, state), (frame[:roll_batch], actions, states)
+
+
+def same_outputs(a, b, predict_args, rollout_args):
+    """Whether predictors ``a`` and ``b`` give the same bits on both calls."""
+    return (torch.equal(a.predict(*predict_args), b.predict(*predict_args))
+            and torch.equal(a.rollout(*rollout_args), b.rollout(*rollout_args)))
+
+
+def check_program_runs(label, launches, runs):
+    """An exported program's launches against EXPECTED (kernels 1-3, and
+    kernels 1-2 by mainloop); its routes were fixed when it was traced, so
+    serving it counts none."""
+    from action_conditioned_gans_tpu_torch.ops import api
+
+    say(f"main path {label}: launches {launches} over "
+        + ", ".join(f"{n} generator calls of {p}" for p, n in runs.items()))
+    check_launches(label, launches, runs)
+    check(not any(api.ROUTES.values()), f"{label}: serving the program routed {api.ROUTES}")
+
+
+def check_traced_routes(label, path, calls):
+    """The routes an export traced: EXPECTED's per generator call, ``calls``
+    times; tracing launches no kernel."""
+    from action_conditioned_gans_tpu_torch.ops import api
+
+    fused, split = EXPECTED[path][2]
+    want = {"fused": fused * calls, "split": split * calls, "group_plain": 0}
+    check(api.ROUTES == want, f"{label}: the export traced routes {api.ROUTES}, want {want}")
+    launched = {k: v for k, v in read_launches().items() if v}
+    check(not launched, f"{label}: tracing launched {launched}")
+
+
+def serve_process(argv):
+    """``serve ... --port 0`` in a process of its own; (process, base URL)
+    once it prints its banner."""
+    cmd = [sys.executable, "-m", "action_conditioned_gans_tpu_torch", "serve", *argv,
+           "--port", "0"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines, banner = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith('{"serving"'):
+                banner.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    if not banner.wait(timeout=300):
+        proc.kill()
+        proc.wait()
+        check(False, "the serve process printed no banner: " + "".join(lines[-20:]))
+    url = json.loads(next(line for line in lines if line.startswith('{"serving"')))["serving"]
+    return proc, url
+
+
+def phase_served(smi, whole):
+    """Phase 15: config4's step-32 checkpoint from phase 13 (EMA, state_dim 3,
+    preset widths) restored, served over HTTP by `serve --workdir --ema` in a
+    process of its own, exported as npz and as the AOT program (`export
+    --format pt2`), sampled and evaluated; config5's AOT program from seeded
+    weights, exported on the CPU and on cuda and served on cuda; the AOT and
+    live predictors' p50 predict times."""
+    from action_conditioned_gans_tpu_torch.aot import AotPredictor, export_aot
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+    from action_conditioned_gans_tpu_torch.ops import api
+    from action_conditioned_gans_tpu_torch.serve import client_predict, client_rollout, to_host
+
+    t_phase = time.perf_counter()
+    tmp = os.path.dirname(whole)
+    cfg = apply_overrides(get_preset("config4"), CONFIG4_OVERRIDES)
+    horizon = cfg.train.rollout_length
+    check(checkpoint_steps(whole)[-1] == 32, f"checkpoints {checkpoint_steps(whole)}")
+    stored = torch.load(os.path.join(whole, "checkpoints", "32", "state.pt"), weights_only=True)
+    check("g_ema" in stored, "the step-32 checkpoint holds no EMA weights")
+    say(f"phase 15: config4's step-32 checkpoint ({whole}), served ({smi})")
+    args_p, args_r = serving_inputs(cfg, 64, horizon, 16, seed=15)
+
+    # Restore, with and without EMA, against Predictors on the stored trees.
+    live = {}
+    for use_ema, key in ((False, "g_params"), (True, "g_ema")):
+        restored = Predictor.from_checkpoint(cfg, whole, use_ema=use_ema, device="cuda")
+        live[key] = Predictor(cfg, stored[key], device="cuda")
+        check(same_outputs(restored, live[key], args_p, args_r),
+              f"from_checkpoint(use_ema={use_ema}) differs from a Predictor on the stored {key}")
+    differ = not torch.equal(live["g_params"].predict(*args_p), live["g_ema"].predict(*args_p))
+    say(f"restore: from_checkpoint and use_ema=True equal Predictors on the stored g_params / "
+        f"g_ema bit for bit (B=64 predict, T={horizon} B=16 rollout); EMA output differs from "
+        f"the parameters' {differ}")
+
+    # `serve --workdir --ema` in a process of its own.
+    t0 = time.perf_counter()
+    proc, url = serve_process(["--preset", "config4", "--workdir", whole, "--ema"])
+    up_s = time.perf_counter() - t0
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            meta = json.loads(r.read())
+        check(meta["ok"] is True and meta["state_dim"] == 3
+              and meta["device"] == torch.cuda.get_device_name(0), f"healthz {meta}")
+        (f, a, st), (f0, acts, sts) = args_p, args_r
+        via_p = client_predict(url, f[:8], a[:8], st[:8])
+        via_r = client_rollout(url, f0[:4], acts[:4], sts[:4])
+        check(np.array_equal(via_p, to_host(live["g_ema"].predict(f[:8], a[:8], st[:8]))),
+              "serve --workdir --ema: /predict differs from the direct call")
+        check(np.array_equal(via_r, to_host(live["g_ema"].rollout(f0[:4], acts[:4], sts[:4]))),
+              "serve --workdir --ema: /rollout differs from the direct call")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    say(f"serve --workdir --ema: up in {up_s:.1f} s; /healthz, /predict (B=8) and /rollout "
+        f"(T={horizon}, B=4) equal the direct calls")
+
+    # export (npz), read back.
+    npz = os.path.join(tmp, "generator.npz")
+    out = metric_lines(run_cli(["export", "--preset", "config4", "--workdir", whole,
+                                "--out", npz]))[-1]
+    check(out == {"exported": npz, "ema": False}, f"export printed {out}")
+    check(same_outputs(Predictor.from_npz(npz, device="cuda"), live["g_params"], args_p, args_r),
+          "from_npz of the exported archive differs from the checkpoint's parameters")
+    say("export: the npz archive read back by from_npz gives the same bits")
+
+    # export --format pt2, served by AotPredictor.
+    aot_path = os.path.join(tmp, "generator.aot")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = metric_lines(run_cli(["export", "--preset", "config4", "--workdir", whole,
+                                "--format", "pt2", "--rollout-length", str(horizon),
+                                "--out", aot_path]))[-1]
+    timings = {"config4_export_s": time.perf_counter() - t0, "config4_aot_bytes": out["bytes"]}
+    check(out["rollout_lengths"] == [horizon] and out["bytes"] == os.path.getsize(aot_path),
+          f"export --format pt2 printed {out}")
+    check_traced_routes("config4 export", "config4 serving", 1 + horizon)
+    aot = AotPredictor(aot_path, device="cuda")
+    reset_launches()
+    p_aot = aot.predict(*args_p)
+    r_aot = aot.rollout(*args_r)
+    torch.cuda.synchronize()
+    launches = {"config4 AOT program": read_launches()}
+    check_program_runs("config4 AOT program", launches["config4 AOT program"],
+                       {"config4 serving": 1 + horizon})
+    check(torch.equal(p_aot, live["g_params"].predict(*args_p))
+          and torch.equal(r_aot, live["g_params"].rollout(*args_r)),
+          "the config4 AOT program differs from the live predictor")
+    say(f"export --format pt2: {out['bytes']} bytes in {timings['config4_export_s']:.1f} s; "
+        f"AotPredictor on cuda: B=64 predict and T={horizon} B=16 rollout bit-identical to the "
+        "live predictor")
+
+    # sample and eval.
+    samples = os.path.join(tmp, "samples")
+    t0 = time.perf_counter()
+    got = metric_lines(run_cli(["sample", "--preset", "config4", "--workdir", whole,
+                                "--num-clips", "8", "--out", samples]))[-1]
+    timings["sample_s"] = time.perf_counter() - t0
+    files = ["pred_final_frame.png", "gt_final_frame.png"] + [
+        f"{kind}_{i}.{ext}" for i in range(4) for kind, ext in (("rollout", "gif"), ("strip", "png"))]
+    check(sorted(os.listdir(samples)) == sorted(files), f"sample wrote {os.listdir(samples)}")
+    for name in files:
+        with open(os.path.join(samples, name), "rb") as fh:
+            head = fh.read(8)
+        want = GIF_SIGNATURE if name.endswith(".gif") else PNG_SIGNATURE
+        check(head.startswith(want), f"{name} does not start with its signature")
+    check(all(np.isfinite(v) for v in got.values()), f"sample metrics {got}")
+    t0 = time.perf_counter()
+    ev = metric_lines(run_cli(["eval", "--preset", "config4", "--workdir", whole]))[-1]
+    timings["eval_s"] = time.perf_counter() - t0
+    check(ev["eval_batches"] == 8 and ev["eval_horizon"] == horizon
+          and all(np.isfinite(v) for v in ev.values()), f"eval printed {ev}")
+    say(f"sample: {len(files)} files with PNG / GIF signatures, {json.dumps(got)}; "
+        f"eval: {json.dumps(ev)}")
+
+    # config5 from seeded weights: exported on the CPU and on cuda, served on cuda.
+    c5 = get_preset("config5")
+    params5 = seeded_params(c5, seed=0)
+    live5 = Predictor(c5, params5, device="cuda")
+    args5_p, args5_r = serving_inputs(c5, 32, 4, 8, seed=16)
+    for where in ("cpu", "cuda"):
+        path = os.path.join(tmp, f"config5-{where}.aot")
+        reset_launches()
+        t0 = time.perf_counter()
+        meta = export_aot(c5, flax_to_state_dict(params5), path, rollout_length=4, device=where)
+        timings[f"config5_export_on_{where}_s"] = time.perf_counter() - t0
+        timings[f"config5_aot_bytes_{where}"] = meta["bytes"]
+        check_traced_routes(f"config5 export on {where}", "config5 serving", 5)
+        program = AotPredictor(path, device="cuda")
+        reset_launches()
+        p_aot, r_aot = program.predict(*args5_p), program.rollout(*args5_r)
+        torch.cuda.synchronize()
+        label = f"config5 AOT program exported on {where}"
+        launches[label] = read_launches()
+        check_program_runs(label, launches[label], {"config5 serving": 5})
+        check(torch.equal(p_aot, live5.predict(*args5_p))
+              and torch.equal(r_aot, live5.rollout(*args5_r)),
+              f"{label} differs from the live predictor")
+        say(f"{label}: served on cuda, B=32 predict and T=4 B=8 rollout bit-identical to the "
+            "live predictor")
+
+    # p50 predict, AOT against live, in turns (live, AOT, AOT, live).
+    c1 = get_preset("config1")
+    params1 = seeded_params(c1, seed=0)
+    path1 = os.path.join(tmp, "config1.aot")
+    export_aot(c1, flax_to_state_dict(params1), path1, device="cuda")
+    for name, (lv, program, (f, a, _)) in {
+        "config1_b128": (Predictor(c1, params1, device="cuda"), AotPredictor(path1, device="cuda"),
+                         serving_inputs(c1, 128, 1, 1, seed=17)[0]),
+        "config5_b32": (live5, AotPredictor(os.path.join(tmp, "config5-cpu.aot"), device="cuda"),
+                        args5_p),
+    }.items():
+        f_t, a_t = torch.from_numpy(f).cuda(), torch.from_numpy(a).cuda()
+        runs = {"live": [], "aot": []}
+        for side in ("live", "aot", "aot", "live"):
+            fn = lv.predict if side == "live" else program.predict
+            runs[side].append(p50_ms(lambda: fn(f_t, a_t)))
+        timings[f"{name}_live_p50_ms"] = runs["live"]
+        timings[f"{name}_aot_p50_ms"] = runs["aot"]
+    say("aot " + json.dumps({**timings, "card": smi}))
+    say(f"phase 15 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+def phase_fault1(smi):
+    """Phase 16, ROADMAP Queue 3 fault 1: config5 at 512x512, g_levels=6,
+    d_levels=7, B=2, in bfloat16 and in float32: one predict and one training
+    step (T=2) on cuda, ROUTES["group_plain"] held to FAULT1_GROUP_PLAIN, and
+    each off-envelope GroupNorm's output against reference.norm_act in
+    float32 on the same input (float32 within 1e-4 abs + 1e-4 rel, bfloat16
+    within 3e-2); losses finite; peak memory printed."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+    from action_conditioned_gans_tpu_torch.ops import api, envelope, reference
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+
+    real = api.norm_act
+    for dtype in ("bfloat16", "float32"):
+        cfg = apply_overrides(get_preset("config5"),
+                              FAULT1_OVERRIDES + [f"model.compute_dtype={dtype}"])
+        seen = []
+
+        def recording(x, scale, bias, **kw):
+            out = real(x, scale, bias, **kw)
+            if kw["kind"] == "group" and not envelope.group_norm_act_supported(x.shape):
+                # The step updates scale and bias in place: keep this call's.
+                seen.append((x.detach(), scale.detach().clone(), bias.detach().clone(), kw,
+                             out.detach()))
+            return out
+
+        api.norm_act = recording
+        try:
+            predictor = Predictor(cfg, seeded_params(cfg, seed=31), device="cuda")
+            (frame, action, _), _ = serving_inputs(cfg, 2, 1, 1, seed=31)
+            api.reset_routes()
+            out = predictor.predict(frame, action)
+            torch.cuda.synchronize()
+            n_predict = api.ROUTES["group_plain"]
+            check(tuple(out.shape) == (2, 512, 512, 3) and bool(torch.isfinite(out.float()).all()),
+                  f"fault 1 {dtype}: predict output")
+            del predictor
+            state = init_state(cfg, torch.Generator().manual_seed(32), device="cuda")
+            step = make_train_step(cfg, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(33)
+            batch = dict(frames=torch.tanh(torch.randn((2, 3, 512, 512, 3), generator=gen,
+                                                       device="cuda")),
+                         actions=torch.randn((2, 2, 4), generator=gen, device="cuda"))
+            torch.cuda.reset_peak_memory_stats()
+            api.reset_routes()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            n_step = api.ROUTES["group_plain"]
+        finally:
+            api.norm_act = real
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        metrics = {k: float(v) for k, v in metrics.items()}
+        check((n_predict, n_step) == FAULT1_GROUP_PLAIN,
+              f"fault 1 {dtype}: group_plain {n_predict} in a predict and {n_step} in a step, "
+              f"want {FAULT1_GROUP_PLAIN}")
+        check(all(np.isfinite(v) for v in metrics.values()), f"fault 1 {dtype}: metrics {metrics}")
+        worst, shapes = 0.0, {}
+        for x, scale, bias, kw, got in seen:
+            want = reference.norm_act(x.float(), scale, bias, **kw)
+            err, ok = within(got, want, *((1e-4, 1e-4) if dtype == "float32" else (3e-2, 0.0)))
+            check(ok, f"fault 1 {dtype}: GroupNorm over x{tuple(x.shape)} is {err:.3e} from "
+                      "reference.norm_act in float32")
+            worst = max(worst, err)
+            shapes[str(tuple(x.shape))] = shapes.get(str(tuple(x.shape)), 0) + 1
+        say(f"fault 1 {dtype}: 512x512 g6 d7 B=2: {n_predict} off-envelope GroupNorms in a "
+            f"predict, {n_step} in a training step (T=2, remat) on the plain composite "
+            f"{json.dumps(shapes)}; max |d| against reference.norm_act in float32 {worst:.3e}; "
+            f"losses {json.dumps(metrics)}; step peak memory {peak_gb:.2f} GB ({smi})")
+
+
+def phase_config2(smi, totals, tmp):
+    """Phase 16, ROADMAP Queue 3 fault 2: config2 (T=10, B=16, k=32) through
+    `train` for 32 steps (counts set to 0 just before and read just after:
+    EXPECTED["config2 step"] x 32 plus the held-out rollout's generator
+    calls), then one counted step, its distinct conv and kernel-4 calls at
+    phases 10 and 11's bars, 20 timed steps and a profile."""
+    from action_conditioned_gans_tpu_torch.config import get_preset
+
+    cfg = get_preset("config2")
+    workdir = os.path.join(tmp, "config2")
+    reset_launches()
+    out = run_cli(["train", "--preset", "config2", "--workdir", workdir, "--steps", "32",
+                   "--set", "train.sample_every=32"])
+    launches = {"config2 train loop": read_launches()}
+    lines = metric_lines(out)
+    n_evals = sum(1 for r in lines if "eval_l2" in r)
+    check(n_evals == 1 and [r["step"] for r in lines] == [32, 32],
+          f"config2 metric lines at steps {[r['step'] for r in lines]}")
+    check(all(np.isfinite(v) for r in lines for v in r.values()), "a non-finite metric line")
+    check(checkpoint_steps(workdir) == [32], f"checkpoints {checkpoint_steps(workdir)}")
+    check_runs("config2 train loop", launches["config2 train loop"],
+               {"config2 step": 32, "config1 serving": n_evals * cfg.train.rollout_length})
+    launches["config2 step"], calls, conv_calls, _ = phase_training(cfg, "config2 step")
+    phase_train_conv_parity(conv_calls, totals)
+    phase_gn_bwd_call_parity(calls, "config2 step", totals["gn_act_bwd"])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1981,6 +2395,14 @@ def main() -> int:
     from action_conditioned_gans_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
+    mark = [t0]
+
+    def lap(label):
+        """Print the seconds since the last mark: each phase's time."""
+        now = time.perf_counter()
+        say(f"{label} took {now - mark[0]:.1f} s")
+        mark[0] = now
+
     paths = build.build_all()
     build_s = time.perf_counter() - t0
     say(f"built {sorted(paths)} for sm_90a in {build_s:.1f} s -> {build.BUILD_DIR}")
@@ -1994,6 +2416,7 @@ def main() -> int:
         for k, v in sorted(found.items()):
             say(f"ptxas {lib} {kernel}<...>={k.split('kernel', 1)[1][:26]}: {v}")
             check(v["spill_stores"] == 0 and v["spill_loads"] == 0, f"{kernel} spills: {k} {v}")
+    lap("phase 1")
 
     kernel3_calls, kernel4_calls = record_kernel3_calls(), record_kernel4_calls()
     predictor = preset_predictor("config1")
@@ -2010,11 +2433,16 @@ def main() -> int:
             worst[name] = max(worst[name], err)
     phase_parity(edge_layers(), batch=None)
     worst_norm = phase_norm_parity()
+    lap("phase 2")
     phase_fixture()
     phase_config5_f32()
+    lap("phase 3")
     launches = {"config1 serving": phase_serving(predictor, "config1 serving", 128, 10, 16)}
+    lap("phase 4, config1")
     phase_http(predictor)
+    lap("phase 5")
     totals = phase_kernel_times(layers, worst, extra=d_layers[1:])
+    lap("phase 6, config1 layers")
     del predictor
 
     predictor = preset_predictor("config5")
@@ -2022,19 +2450,25 @@ def main() -> int:
     c5_layers = capture_layers(predictor.generator, lambda: predictor.predict(frame, action[:2]))
     check(len(c5_layers) == 11, f"expected 11 config5 generator layers, saw {len(c5_layers)}")
     launches["config5 serving"] = phase_serving(predictor, "config5 serving", 32, 30, 8, timed=8)
+    lap("phase 4, config5")
     totals["group_norm_act"] = phase_norm_times(c5_layers, worst_norm)
     phase_norm_times(c5_layers, worst_norm, batch=8)  # the rollout's batch
+    lap("phase 6, kernel 3")
     del predictor
 
     phase_gn_bwd_parity()
     phase_gn_bwd_bf16_y()
+    lap("phase 7")
     phase_autograd_parity(layers + d_layers)
     phase_split_autograd()
+    lap("phase 8")
     phase_train_fixture()
+    lap("phase 9")
     launches["config1 step"], calls, conv_calls, _ = phase_training(config1_train_config(),
                                                                     "config1 step")
     phase_train_conv_parity(conv_calls, totals)
     totals["gn_act_bwd"] = phase_gn_bwd_times(calls, "config1 step")
+    lap("phases 10-11, config1")
     from action_conditioned_gans_tpu_torch.config import get_preset
 
     launches["config3 step"], calls3, conv_calls, norm_calls = phase_training(
@@ -2044,9 +2478,17 @@ def main() -> int:
     config3 = phase_gn_bwd_times(calls3, "config3 step")
     totals["gn_act_bwd"]["max_abs_err"] = max(totals["gn_act_bwd"]["max_abs_err"],
                                               config3["max_abs_err"])
+    lap("phases 10-11, config3")
     launches["config1 train loop"] = phase_loop(smi)
-    launches["config4 train loop"], launches["config4 step"] = phase_config4(smi, totals)
-    launches["config5 step"] = phase_config5(smi, totals)
+    with tempfile.TemporaryDirectory(prefix="loop-c4-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
+        launches["config4 train loop"], launches["config4 step"] = phase_config4(smi, totals, tmp)
+        launches["config5 step"] = phase_config5(smi, totals)
+        launches.update(phase_served(smi, os.path.join(tmp, "whole")))
+        mark[0] = time.perf_counter()
+        say(f"phase 16: ROADMAP Queue 3 faults 1 and 2 ({smi})")
+        phase_fault1(smi)
+        launches.update(phase_config2(smi, totals, tmp))
+        lap("phase 16")
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 

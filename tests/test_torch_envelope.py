@@ -117,7 +117,7 @@ def test_split_layers_per_preset(preset, dtype):
                                block.norm, block.groups, DTYPES[dtype]) == "split"]
     assert split == SPLIT[(preset, dtype)]
     # The dispatch counted each layer once, on the route the table gives.
-    assert api.ROUTES == {"fused": len(layers) - len(split), "split": len(split)}
+    assert api.ROUTES == {"fused": len(layers) - len(split), "split": len(split), "group_plain": 0}
 
 
 EDGE_CONV = [

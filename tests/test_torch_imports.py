@@ -37,9 +37,10 @@ def test_the_scan_sees_the_whole_port():
                    "train/state.py", "train/rollout.py", "train/step.py",
                    "ops/kernels/norm_act.py", "ops/envelope.py", "data/synthetic.py",
                    "data/pipeline.py", "utils/checkpoint.py", "utils/metrics.py",
-                   "train/loop.py", "train/sample.py", "bench.py", "train/augment.py"):
+                   "train/loop.py", "train/sample.py", "bench.py", "train/augment.py",
+                   "aot.py", "ops/kernels/library.py", "utils/images.py", "infer.py", "cli.py"):
         assert f"action_conditioned_gans_tpu_torch/{module}" in rel
-    assert len(rel) >= 32
+    assert len(rel) >= 35
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))

@@ -177,17 +177,91 @@ def test_bad_content_length_is_refused(live, length, code):
         conn.close()
 
 
-def test_build_predictor_takes_npz_and_refuses_the_rest(exported):
+TINY_SETS = [f"model.{k}={v}" for k, v in TINY.items()]
+
+
+@pytest.fixture(scope="module")
+def sources(tmp_path_factory, exported):
+    """The three sources ``serve`` takes, of one tiny generator: a workdir
+    whose checkpoint holds EMA weights (the parameters + 0.01), an AOT
+    artifact of its parameters and the JAX export of ``exported``; with
+    the direct predictors on the parameters and on the EMA weights."""
+    from action_conditioned_gans_tpu_torch.aot import export_aot
+    from action_conditioned_gans_tpu_torch.train.state import init_state, state_to_host
+    from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = tmp_path_factory.mktemp("sources")
+    cfg = cli.apply_overrides(Config(workdir=str(root / "w")),
+                              TINY_SETS + ["train.ema_decay=0.5", "train.batch_size=2"])
+    state = init_state(cfg, torch.Generator().manual_seed(1), device="cpu")
+    state.g_ema = {k: v + 0.01 for k, v in state.g_params.items()}
+    CheckpointManager(f"{cfg.workdir}/checkpoints").save(7, state_to_host(state, cfg))
+    aot = str(root / "g.aot")
+    export_aot(cfg, state.g_params, aot, rollout_length=3, device="cpu")
+    return dict(cfg=cfg, workdir=cfg.workdir, aot=aot, npz=exported[2],
+                raw=Predictor(cfg, state.g_params, device="cpu"),
+                ema=Predictor(cfg, state.g_ema, device="cpu"))
+
+
+def test_build_predictor_takes_npz_and_refuses_the_rest(sources):
+    """The three routes: an .npz archive to ``from_npz``, any other artifact
+    to the AOT predictor, no artifact to ``from_checkpoint`` of --workdir
+    (--ema: its EMA weights); a source that holds nothing is refused."""
     import argparse
 
-    _, _, path = exported
+    from action_conditioned_gans_tpu_torch.aot import AotPredictor
+
     cfg = Config(model=ModelConfig(compute_dtype="float32"))
-    p = build_predictor(argparse.Namespace(artifact=path, device="cpu"), cfg)
+    args = lambda **kw: argparse.Namespace(**{"artifact": None, "device": "cpu", **kw})  # noqa: E731
+    p = build_predictor(args(artifact=sources["npz"]), cfg)
     assert isinstance(p, Predictor) and p.cfg.model.image_size == 16
-    for args in (argparse.Namespace(artifact="g.aot", device="cpu"),
-                 argparse.Namespace(artifact=None, device="cpu", workdir="/w")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_predictor(args, cfg)
+    p = build_predictor(args(artifact=sources["aot"]), cfg)
+    assert isinstance(p, AotPredictor) and p.device.type == "cpu"
+    frame, action, actions = rand(20, 2, 16, 16, 3), rand(21, 2, 4), rand(22, 2, 3, 4)
+    assert torch.equal(p.predict(frame, action), sources["raw"].predict(frame, action))
+    for ema, want in ((False, sources["raw"]), (True, sources["ema"])):
+        p = build_predictor(args(workdir=sources["workdir"], ema=ema), sources["cfg"])
+        assert isinstance(p, Predictor)
+        assert torch.equal(p.predict(frame, action), want.predict(frame, action))
+        assert torch.equal(p.rollout(frame, actions), want.rollout(frame, actions))
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        build_predictor(args(workdir=str(sources["workdir"]) + "-empty"), sources["cfg"])
+    with pytest.raises(FileNotFoundError):
+        build_predictor(args(artifact=sources["aot"] + "-missing"), cfg)
+
+
+@pytest.mark.parametrize("source", ["workdir", "workdir --ema", "aot"])
+def test_serve_workdir_and_aot_over_http(sources, source):
+    """``serve --workdir <dir> [--ema]`` and ``serve --artifact x.aot`` in a
+    process of their own: /predict and /rollout equal the direct calls."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if source == "aot":
+        argv, want = ["--artifact", sources["aot"]], sources["raw"]
+    else:
+        argv = ["--workdir", sources["workdir"]] + [a for s in TINY_SETS for a in ("--set", s)]
+        want = sources["ema" if "--ema" in source else "raw"]
+        argv += ["--ema"] if "--ema" in source else []
+    code = "import torch, sys; torch.set_num_threads(1); from action_conditioned_gans_tpu_torch.cli import main; sys.exit(main(sys.argv[1:]))"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "serve", *argv, "--device", "cpu", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        env=dict(os.environ, PYTHONPATH=repo), cwd=repo,
+    )
+    try:
+        banner = json.loads(proc.stdout.readline())
+        assert banner["backend"] == ("AotPredictor" if source == "aot" else "Predictor")
+        frame, action, actions = rand(23, 2, 16, 16, 3), rand(24, 2, 4), rand(25, 2, 3, 4)
+        np.testing.assert_array_equal(client_predict(banner["serving"], frame, action),
+                                      want.predict(frame, action).numpy())
+        np.testing.assert_array_equal(client_rollout(banner["serving"], frame, actions),
+                                      want.rollout(frame, actions).numpy())
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
 
 
 def test_cli_configs_and_serve_argument_checks(capsys):

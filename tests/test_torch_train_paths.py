@@ -5,7 +5,8 @@ the card) with every kernel wrapper recorded.
 * ``chip_smoke.EXPECTED`` (launches of kernels 1-4, kernels 1-2 by
   mainloop, routes, kernel-4 calls that read a bfloat16 y) equals what the
   recorded calls give for every path the script holds to it: the config1,
-  config3, config4 and config5 steps at the script's sizes and overrides,
+  config2, config3, config4 and config5 steps at the script's sizes and
+  overrides,
   and the generator calls of config1, config4 and config5 serving.
 * Kernel 1's tile plan, kernel 3's plan and kernel 4's plan are pinned at
   every distinct call of the config4 step (B=64, T=10: G at 64, D at 640 and
@@ -131,6 +132,7 @@ def smoke_config(preset, overrides):
 
 STEP_PATHS = {
     "config1 step": lambda: chip_smoke.config1_train_config(),
+    "config2 step": lambda: tcfg.get_preset("config2"),
     "config3 step": lambda: tcfg.get_preset("config3"),
     "config4 step": lambda: smoke_config("config4", chip_smoke.CONFIG4_OVERRIDES),
     "config5 step": lambda: smoke_config("config5", chip_smoke.CONFIG5_OVERRIDES),
