@@ -7,8 +7,8 @@ conv block runs a hand-written sm_90a kernel (``csrc/``), and under autograd
 its GroupNorm backward runs one too; on a CPU tensor the plain PyTorch
 versions run. ``infer`` serves the generator; ``train`` takes fused G+D
 training steps and runs the training loop (``train.loop``) on synthetic clips
-made on the device (``data``), with checkpoints (``utils.checkpoint``);
-``bench`` times the training step.
+made on the device or on TFRecord clip files (``data``), with checkpoints
+(``utils.checkpoint``); ``bench`` times the training step.
 """
 
 from action_conditioned_gans_tpu_torch.config import (  # noqa: F401

@@ -1,17 +1,20 @@
 """CLI: ``python -m action_conditioned_gans_tpu_torch
-configs|serve|train|bench|export|sample|eval``.
+configs|serve|train|bench|export|sample|eval|make-data|doctor|profile-report``.
 
-``train`` trains a preset on synthetic clips made on the device, with JSON
-metric lines, checkpoints under ``--workdir`` and resume; ``bench`` prints
-one JSON line for the preset's training step. ``export`` writes what a
-checkpoint holds as a generator ``.npz`` archive or, with ``--format pt2``,
-as an AOT artifact (``aot.py``); ``sample`` writes rollout PNGs and GIFs and
-prints their metrics, ``eval`` prints held-out metrics. ``serve`` answers
-HTTP requests from an ``.npz`` archive (the port's or the JAX package's
-``export``), an AOT artifact, or ``--workdir``'s latest checkpoint. Each
-runs on the GPU, or on the CPU with ``--device cpu``. The JAX package's
-``make-data``, ``profile-report`` and ``doctor`` are not ported yet (ROADMAP
-Queue 1 item 7).
+``train`` trains a preset on synthetic clips made on the device, or on
+TFRecord clips (``--set data.source=tfrecord_native --set
+data.data_dir=DIR``), with JSON metric lines, checkpoints under ``--workdir``
+and resume; ``bench`` prints one JSON line for the preset's training step.
+``make-data`` writes seeded synthetic clips as BAIR-schema TFRecords.
+``export`` writes what a checkpoint holds as a generator ``.npz`` archive or,
+with ``--format pt2``, as an AOT artifact (``aot.py``); ``sample`` writes
+rollout PNGs and GIFs and prints their metrics, ``eval`` prints held-out
+metrics. ``serve`` answers HTTP requests from an ``.npz`` archive (the
+port's or the JAX package's ``export``), an AOT artifact, or
+``--workdir``'s latest checkpoint. ``doctor`` checks the device, compilers,
+builds, data and checkpoints (exit 1 if one fails); ``profile-report``
+summarises a ``train --profile-steps`` trace. Each runs on the GPU, or on
+the CPU with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ def _rollout_lengths(raw: str) -> List[int]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="acgan-torch", description=__doc__)
     p.add_argument("command",
-                   choices=["configs", "serve", "train", "bench", "export", "sample", "eval"])
+                   choices=["configs", "serve", "train", "bench", "export", "sample", "eval",
+                            "make-data", "doctor", "profile-report"])
     p.add_argument("--preset", default="config1", help="preset name")
     p.add_argument("--workdir", default=None,
                    help="train: checkpoints, TensorBoard, profile; serve / export / sample / "
@@ -80,8 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="config override, repeatable",
     )
     p.add_argument("--out", default=None,
-                   help="export: the artifact's path; sample: the image directory")
-    p.add_argument("--num-clips", type=int, default=8, help="sample: held-out clips rolled out")
+                   help="export: the artifact's path; sample: the image directory; make-data: "
+                   "the TFRecord file (default <workdir>/data/clips.tfrecord); profile-report: "
+                   "the trace file or directory to read (default <workdir>/profile)")
+    p.add_argument("--num-clips", type=int, default=8,
+                   help="sample: held-out clips rolled out; make-data: clips written")
     p.add_argument("--ema", action="store_true",
                    help="serve / export / sample / eval with the EMA generator weights (needs a "
                    "checkpoint trained with train.ema_decay > 0)")
@@ -94,7 +101,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--artifact", default=None,
                    help="serve: a generator .npz archive or an AOT artifact; omitted = restore "
                    "the latest checkpoint from --workdir")
-    p.add_argument("--device", default=None, help="torch device (default cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda); doctor: the probe's target")
+    p.add_argument("--top", type=int, default=30, help="profile-report: rows to print")
+    p.add_argument("--json", default=None,
+                   help="profile-report: also write the whole summary as JSON to this path")
+    p.add_argument("--probe-timeout", type=int, default=120,
+                   help="doctor: seconds before the device probe is declared hung")
     p.add_argument("--host", default="127.0.0.1", help="serve: bind address")
     p.add_argument("--port", type=int, default=8700, help="serve: TCP port (0 = any free)")
     return p
@@ -103,6 +116,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    from action_conditioned_gans_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
+
+    maybe_enable_compile_cache()  # before any build
+    if args.command == "profile-report":
+        return _profile_report(parser, args)
     if args.command == "configs":
         for name, c in PRESETS.items():
             print(
@@ -126,6 +144,15 @@ def main(argv=None) -> int:
 
         print(json.dumps(run_bench(cfg, steps=args.steps or 30, device=args.device)), flush=True)
         return 0
+    if args.command == "make-data":
+        return _make_data(args, cfg)
+    if args.command == "doctor":
+        # Every check in a process of its own, with a timeout.
+        from action_conditioned_gans_tpu_torch.utils.doctor import run_doctor
+
+        report = run_doctor(cfg, probe_timeout=args.probe_timeout, device=args.device)
+        print(json.dumps(report, indent=1), flush=True)
+        return 0 if report["ok"] else 1
     if args.command == "serve":
         # An explicit source: cfg.workdir has a default, and a server standing
         # up on whatever a past run left there is never what was meant.
@@ -136,6 +163,66 @@ def main(argv=None) -> int:
         serve_forever(build_predictor(args, cfg), args.host, args.port)
         return 0
     return _from_checkpoint(parser, args, cfg)
+
+
+def _profile_report(parser, args) -> int:
+    """Summarise a ``train --profile-steps`` trace (``utils/trace_report``);
+    exit 1 when it holds no device event (a CPU run's trace)."""
+    from action_conditioned_gans_tpu_torch.utils.trace_report import (
+        load_trace,
+        print_summary,
+        summarize,
+    )
+
+    path = args.out or (f"{args.workdir}/profile" if args.workdir else None)
+    if not path:
+        parser.error("profile-report needs --out <trace file or dir> or --workdir")
+    try:
+        trace = load_trace(path)
+    except FileNotFoundError as e:
+        parser.error(f"{e}; capture one with `train --profile-steps N --workdir <dir>`")
+    summary = summarize(trace)
+    if not summary.rows:
+        print(f"no device kernel in {trace['source']}: capture the trace on the GPU "
+              "(`train --profile-steps N`)", flush=True)
+        return 1
+    print_summary(summary, args.top)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(dataclasses.asdict(summary), steps=summary.steps), f, indent=1)
+        print(f"[acgan] wrote {args.json}", flush=True)
+    return 0
+
+
+def _make_data(args, cfg: Config) -> int:
+    """Seeded synthetic clips of the preset (``clip_len`` frames at
+    ``image_size``) as BAIR-schema TFRecords, made on ``--device`` and
+    written by the TF-free writer; actions and states are padded to
+    ``clip_len`` with a row of zeros (the schema holds one set a frame)."""
+    import numpy as np
+    import torch
+
+    from action_conditioned_gans_tpu_torch.config import resolve_device
+    from action_conditioned_gans_tpu_torch.data.native_tfrecord import write_clips_tfrecord_native
+    from action_conditioned_gans_tpu_torch.data.synthetic import draw_clip_randoms, render_clips
+
+    out = args.out or f"{cfg.workdir}/data/clips.tfrecord"
+    n, d, m = args.num_clips, cfg.data, cfg.model
+    generator = torch.Generator(resolve_device(args.device)).manual_seed(cfg.train.seed)
+    randoms = draw_clip_randoms(generator, n, d.clip_len, m.action_dim)
+    parts = {"frames": [], "actions": [], "states": []}
+    for lo in range(0, n, 64):  # render in chunks: a clip's render is its own
+        clips = render_clips({k: v[lo:lo + 64] for k, v in randoms.items()}, d.clip_len,
+                             m.image_size, m.action_dim)
+        u8 = ((clips["frames"].clamp(-1, 1) + 1) * 127.5).round().to(torch.uint8)
+        parts["frames"].append(u8.cpu().numpy())
+        for key in ("actions", "states"):
+            x = clips[key]
+            parts[key].append(torch.cat([x, torch.zeros_like(x[:, :1])], dim=1).cpu().numpy())
+    write_clips_tfrecord_native(out, *(np.concatenate(parts[k]) for k in
+                                       ("frames", "actions", "states")))
+    print(json.dumps({"written": out, "clips": n, "clip_len": d.clip_len}), flush=True)
+    return 0
 
 
 def _from_checkpoint(parser, args, cfg: Config) -> int:

@@ -1,12 +1,15 @@
 """The training loop (port of the JAX package's ``train/loop.py``).
 
-Each iteration takes one stacked synthetic batch made on the device and runs
-``steps_per_call`` fused G+D steps on it; metrics are read back only at log
-boundaries. Checkpoints every ``checkpoint_every`` steps (the newest
-``checkpoint_keep`` kept), held-out rollouts every ``sample_every``, and on
-SIGTERM a checkpoint and a clean exit. A run resumes from the latest
-checkpoint at the batch an uninterrupted run would have seen next: batch i is
-a pure function of (seed, i), and the loop asks for batch ``start // k``.
+Each iteration takes one stacked batch and runs ``steps_per_call`` fused G+D
+steps on it; metrics are read back only at log boundaries. Synthetic batches
+are made on the device; file batches are read on the host by a background
+thread and copied to the device (``data/pipeline.py``). Checkpoints every
+``checkpoint_every`` steps (the newest ``checkpoint_keep`` kept), held-out
+rollouts every ``sample_every``, and on SIGTERM a checkpoint and a clean
+exit. A run resumes from the latest checkpoint at the batch an uninterrupted
+run would have seen next: synthetic batch i is a pure function of (seed, i),
+and the loop asks for batch ``start // k``; the file readers skip the
+``start // k`` calls' batches already consumed.
 
 The loop runs on one device, ``cuda`` unless another is given; a mesh of more
 than one device waits on ROADMAP Queue 1 item 6.
@@ -34,6 +37,7 @@ from action_conditioned_gans_tpu_torch.train.state import (
 from action_conditioned_gans_tpu_torch.train.step import make_multi_train_step
 from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
 from action_conditioned_gans_tpu_torch.utils.metrics import MetricWriter
+from action_conditioned_gans_tpu_torch.utils.profiling import annotate
 
 
 def check_single_device(cfg: Config) -> None:
@@ -119,8 +123,14 @@ def train(
 
         if sample_fn is None:
             sample_fn = make_rollout_fn(cfg, dev)
-            held_out = next(held_out_batches(cfg, min(8, t.batch_size), max(t.rollout_length, 1),
-                                             t.seed + 7919, device=dev))
+            # One batch is kept; the stream is closed at once, which stops a
+            # file reader's fill thread.
+            stream = held_out_batches(cfg, min(8, t.batch_size), max(t.rollout_length, 1),
+                                      t.seed + 7919, device=dev)
+            try:
+                held_out = next(stream)
+            finally:
+                stream.close()
         preds = sample_fn(state.g_params, held_out)
         em = eval_metrics(preds, held_out["frames"][:, 1:])
         if state.g_ema is not None:
@@ -180,14 +190,19 @@ def train(
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if dev.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
-                profiler = torch.profiler.profile(activities=activities)
+                # Shapes too: profile-report reckons the kernels' rooflines from them.
+                profiler = torch.profiler.profile(activities=activities, record_shapes=True)
                 profiler.start()
                 profile_start, profile_stop = -1, done + profile_steps
             if profile_stop >= 0 and done >= profile_stop:
                 stop_trace()
                 profile_stop = -1
             batch = dataset.batch_at(call)
-            state, metrics = step_fn(state, batch)
+            if profiler is None:
+                state, metrics = step_fn(state, batch)
+            else:  # a span a call, for profile-report's steps per call
+                with annotate(f"acgan:train_call[k={k}]"):
+                    state, metrics = step_fn(state, batch)
             before, done = done, done + k
             call += 1
             if crossed(before, done, t.log_every) or before == start:
@@ -211,6 +226,9 @@ def train(
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
         writer.close()
+        close = getattr(dataset, "close", None)
+        if close is not None:  # a file source's fill thread
+            close()
         if profiler is not None:
             # The window can still be open at exit (profile_stop past the end,
             # SIGTERM, an error): flush it rather than drop it.
@@ -227,4 +245,12 @@ def train(
         print(f"[acgan] p50 dispatch cadence {p50 * 1e3:.2f} ms ({k} step(s)/call) | "
               f"~{fps:.1f} frames/sec/chip (dispatch-cadence estimate; use `bench` for "
               "timed windows that end in a synchronize)", flush=True)
+    stats = getattr(dataset, "stats", None)
+    if stats and stats["batches"]:
+        n, filled = stats["batches"], max(stats["filled"], 1)
+        # The file source's host side, per call: the fill thread's time in
+        # the reader (parse, stack, cast, pin, copy) and the loop's wait on
+        # the queue.
+        print(f"[acgan] file data per call: fill {stats['fill_s'] * 1e3 / filled:.2f} ms | wait "
+              f"{stats['wait_s'] * 1e3 / n:.2f} ms | {n} calls", flush=True)
     return state

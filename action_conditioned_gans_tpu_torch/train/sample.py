@@ -12,6 +12,7 @@ device of the state's parameters.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Iterator, Optional
 
@@ -20,7 +21,7 @@ import torch
 from torch.func import functional_call
 
 from action_conditioned_gans_tpu_torch.config import Config, resolve_device
-from action_conditioned_gans_tpu_torch.data.pipeline import FILE_SOURCES
+from action_conditioned_gans_tpu_torch.data.pipeline import FILE_SOURCES, make_dataset
 from action_conditioned_gans_tpu_torch.data.synthetic import SyntheticClips
 from action_conditioned_gans_tpu_torch.infer import rollout_scan
 from action_conditioned_gans_tpu_torch.models import Generator
@@ -42,8 +43,11 @@ def make_rollout_fn(cfg: Config, device=None):
     def fn(g_params, batch):
         states = batch.get("states") if cfg.model.state_dim else None
         apply = lambda f, a, s: functional_call(gen, g_params, (f, a, s))  # noqa: E731
+        # frames[:, 0] is a strided view: the kernels read contiguous NHWC,
+        # and a cast to the compute dtype copies only when the dtype differs.
         with torch.no_grad():
-            return rollout_scan(apply, batch["frames"][:, 0], batch["actions"], states)
+            return rollout_scan(apply, batch["frames"][:, 0].contiguous(), batch["actions"],
+                                states)
 
     return fn
 
@@ -110,16 +114,27 @@ def eval_metrics(preds, targets) -> Dict[str, float]:
 
 def held_out_batches(cfg: Config, batch_size: int, horizon: int, seed: int,
                      device=None) -> Iterator[Dict[str, torch.Tensor]]:
-    """Held-out synthetic clips of ``horizon + 1`` frames, seeded apart from
-    the training stream by the caller (the loop passes ``train.seed + 7919``).
-    The file sources wait on ROADMAP Queue 1 item 7."""
-    if cfg.data.source in FILE_SOURCES:
-        raise NotImplementedError(
-            f"held-out clips from data.source={cfg.data.source!r} are not ported yet "
-            "(ROADMAP Queue 1 item 7)"
-        )
-    return iter(SyntheticClips(batch_size, horizon + 1, cfg.model.image_size,
-                               cfg.model.action_dim, seed=seed, device=device))
+    """Held-out clips of ``horizon + 1`` frames from the configured source.
+
+    Synthetic: seeded apart from the training stream by the caller (the loop
+    passes ``train.seed + 7919``). File sources read ``data.eval_data_dir``,
+    a held-out split, or ``data.data_dir`` (the training clips) when it is
+    unset, with the batch, horizon and seed replaced. The reader is closed
+    when the generator is (``close()``, or when it is collected): its fill
+    thread stops only then."""
+    if cfg.data.source not in FILE_SOURCES:
+        yield from SyntheticClips(batch_size, horizon + 1, cfg.model.image_size,
+                                  cfg.model.action_dim, seed=seed, device=device)
+        return
+    eval_cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, data_dir=cfg.data.eval_data_dir or cfg.data.data_dir),
+        train=dataclasses.replace(cfg.train, batch_size=batch_size, rollout_length=horizon,
+                                  seed=seed))
+    ds = make_dataset(eval_cfg, device=device)
+    try:
+        yield from ds
+    finally:
+        ds.close()
 
 
 def _device(state: TrainState) -> torch.device:
@@ -136,11 +151,14 @@ def evaluate(cfg: Config, state: TrainState, num_batches: int = 8, batch_size: i
     fn = make_rollout_fn(cfg, dev)
     stream = held_out_batches(cfg, batch_size, horizon, seed, device=dev)
     acc: Dict[str, float] = {}
-    for _ in range(num_batches):
-        batch = next(stream)
-        m = eval_metrics(fn(state.g_params, batch), batch["frames"][:, 1:])
-        for k, v in m.items():
-            acc[k] = acc.get(k, 0.0) + v / num_batches
+    try:
+        for _ in range(num_batches):
+            batch = next(stream)
+            m = eval_metrics(fn(state.g_params, batch), batch["frames"][:, 1:])
+            for k, v in m.items():
+                acc[k] = acc.get(k, 0.0) + v / num_batches
+    finally:
+        stream.close()
     acc["eval_batches"] = num_batches
     acc["eval_horizon"] = horizon
     return acc
@@ -155,7 +173,11 @@ def sample(cfg: Config, state: TrainState, out_dir: str, num_clips: int = 8,
     os.makedirs(out_dir, exist_ok=True)
     horizon = horizon or max(cfg.train.rollout_length, 1)
     dev = _device(state)
-    batch = next(held_out_batches(cfg, num_clips, horizon, seed, device=dev))
+    stream = held_out_batches(cfg, num_clips, horizon, seed, device=dev)
+    try:
+        batch = next(stream)
+    finally:
+        stream.close()
     preds = _host(make_rollout_fn(cfg, dev)(state.g_params, batch))
     targets = _host(batch["frames"][:, 1:])
 

@@ -60,6 +60,90 @@ def encode_png(image: np.ndarray) -> bytes:
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
+_PNG_CHANNELS = {v: k for k, v in _PNG_COLOUR.items()}  # colour type -> channels
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter_row(kind: int, row: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """One scanline's bytes before filter ``kind`` (0-4) was applied, given
+    the previous scanline's (zeros above the first)."""
+    if kind == 0:
+        return row
+    if kind == 1:  # Sub: a running sum along each channel
+        return (row.reshape(-1, bpp).astype(np.int64).cumsum(axis=0) % 256).astype(
+            np.uint8).reshape(-1)
+    if kind == 2:  # Up
+        return row + prev
+    if kind not in (3, 4):
+        raise ValueError(f"PNG filter type {kind} is not one of 0-4")
+    out = bytearray(row.tobytes())
+    up = prev.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        if kind == 3:  # Average
+            out[i] = (out[i] + ((a + up[i]) >> 1)) & 0xFF
+        else:  # Paeth
+            c = up[i - bpp] if i >= bpp else 0
+            out[i] = (out[i] + _paeth(a, up[i], c)) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8, C 1 (gray), 3 (RGB) or 4 (RGBA): 8-bit
+    samples, colour types 0, 2 and 6, filters 0-4, no interlace. Chunk CRCs
+    are checked. Any other PNG raises a ValueError that says what is
+    unsupported."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError("not a PNG (no PNG signature)")
+    pos, header, idat = len(PNG_SIGNATURE), None, []
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("truncated PNG: no IEND chunk")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"truncated PNG {kind!r} chunk")
+        if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise ValueError(f"PNG {kind!r} chunk fails its CRC")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    w, h, depth, colour, _, _, interlace = header
+    if depth != 8:
+        raise ValueError(f"unsupported PNG bit depth {depth} (only 8-bit samples are decoded)")
+    if colour not in _PNG_CHANNELS:
+        raise ValueError(f"unsupported PNG colour type {colour} (decoded: 0 gray, 2 RGB, "
+                         "6 RGBA; not 3 palette or 4 gray + alpha)")
+    if interlace:
+        raise ValueError("unsupported interlaced (Adam7) PNG")
+    c = _PNG_CHANNELS[colour]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = w * c + 1
+    if raw.size != h * stride:
+        raise ValueError(f"PNG image data holds {raw.size} bytes, not {h} rows of {stride}")
+    rows = raw.reshape(h, stride)
+    out = np.empty((h, w * c), np.uint8)
+    prev = np.zeros(w * c, np.uint8)
+    for y in range(h):
+        prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, c)
+    return out.reshape(h, w, c)
+
+
 def _write(path: str, data: bytes) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:

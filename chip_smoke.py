@@ -117,7 +117,9 @@ Phases, each of which fails the run (non-zero exit, no final line):
     deterministic algorithms for the three runs). ``train`` in a process of
     its own, SIGTERM after its first metric line: exit 0 and a checkpoint
     at the step it stopped at. The uninterrupted run traces steps 48-64
-    (``--profile-steps 16``): its chrome trace must hold device kernels.
+    (``--profile-steps 16``): its chrome trace must hold device kernels;
+    their device ms and launches by chip_smoke's kernel table are printed
+    (``profile: trace totals``) and the trace is kept for phase 17.
     Two more 96-step runs in cuDNN's default algorithms are compared with
     each other and the result printed (not checked).
     Then the synthetic data's ms per call (16 x 128 clips), one checkpoint
@@ -186,9 +188,30 @@ Phases, each of which fails the run (non-zero exit, no final line):
     its distinct conv and kernel-4 calls at phases 10 and 11's bars, 20
     timed steps and a profile.
 
+17. Training on clip files (data.source=tfrecord_native): ``make-data``
+    in two processes of their own writes 512 config1 clips (30 frames of
+    64x64, raw, ~190 MB) and 64 held-out ones; they parse, and the TF-free
+    reader's library is built under build/native/ with native/ unchanged
+    (mtimes and hashes). ``train`` with phase 12's arguments, bf16 frames on
+    the host and a checkpoint every 16 steps, for 32 steps (counts set to 0
+    just before, read just after: EXPECTED["config1 step"] x 32 plus the
+    held-out rollout's generator call; batches on cuda; held-out clips read
+    from eval_data_dir), then a resume from its step-16 checkpoint
+    bit-identical at step 32 under cudnn.deterministic (the file wraps
+    inside every call); no reader thread outlives its loop. A ``file data``
+    line: 64-step runs without checkpoints, the synthetic stream's p50
+    cadence beside the files' read serially and on 4 decode threads, each
+    with the fill thread's and the loop's wait ms a call, and from a trace
+    of its last call the device's busy share and the H2D copies' device ms.
+    ``doctor`` in its own process (exit 0; cuda, nvcc, the kernels' and the
+    native build ok). ``profile-report --json`` on phase 12's trace: kernels
+    1, 2 and 4's launches equal EXPECTED x 16 steps plus the held-out
+    generator call, and kernels 1-2's and kernel 4's device ms within 2% of
+    phase 12's own ``profile: trace totals`` line (chip_smoke's kernel table).
+
 Then a ``kernels`` JSON line (per kernel: launches summed over every main
-path, the config2, config4 and config5 steps, the config2 and config4 loops
-and the AOT programs included; max |err|, kernel, plain, bound and library
+path, the config2, config4 and config5 steps, the config1 file, config2 and
+config4 loops and the AOT programs included; max |err|, kernel, plain, bound and library
 times; kernel 4's over the config1 step's calls, and its config3 step's sums
 beside them), then the final line ``{"ok": true, "device": {...}}``.
 """
@@ -1645,11 +1668,34 @@ def sigterm_run(workdir):
     return stopped[0], exit_s
 
 
-def phase_loop(smi):
+def own_kernel_totals(events):
+    """Device ms and launches of kernels 1-2 together (their GEMMs, weight
+    packing, narrow conv-transpose and GroupNorm epilogue) and of kernel 4
+    in a chrome trace's kernel events, by OWN_KERNELS' names: the count
+    ``profile-report``'s attribution is held to in phase 17."""
+    conv = [k for k, v in OWN_KERNELS.items() if v != "gn_act_bwd" and "gn_cluster" not in k]
+    out = {"kernels 1-2 ms": 0.0, "kernel 4 ms": 0.0, "kernels 1-2 launches": 0,
+           "kernel 4 launches": 0}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name, ms = e["name"], e.get("dur", 0.0) / 1e3
+        if "gn_bwd_" in name:
+            out["kernel 4 ms"] += ms
+            out["kernel 4 launches"] += "gn_bwd_cluster_kernel" in name
+        elif any(k in name for k in conv):
+            out["kernels 1-2 ms"] += ms
+            out["kernels 1-2 launches"] += any(k in name for k in (
+                "conv_wgmma_kernel", "conv_wmma_kernel", "conv_fma_kernel", "narrow_transpose"))
+    return out
+
+
+def phase_loop(smi, keep):
     """Phase 12: the `train` subcommand on the card (counts set to 0 just
     before the first run and read just after), its checkpoints, an exact
     resume against an uninterrupted run, SIGTERM in a process of its own,
-    the data's and a save's times, and the `bench` line."""
+    the data's and a save's times, and the `bench` line. The trace of the
+    uninterrupted run is copied to ``<keep>/profile`` for phase 17."""
     import re
 
     from action_conditioned_gans_tpu_torch.bench import run_bench
@@ -1712,6 +1758,10 @@ def phase_loop(smi):
         kernels = sum(1 for e in events if e.get("cat") == "kernel")
         say(f"profile: {traces[0]} holds {kernels} device kernel events of steps 48-64")
         check(kernels > 0, "the loop's trace holds no device kernel")
+        trace_totals = own_kernel_totals(events)
+        say("profile: trace totals by chip_smoke's kernel table " + json.dumps(trace_totals))
+        os.makedirs(os.path.join(keep, "profile"))
+        shutil.copy(os.path.join(whole, "profile", traces[0]), os.path.join(keep, "profile"))
         same, max_diff, where = compare_states(final_params(first, 96), final_params(whole, 96))
         say(f"resume: 64 + 32 steps against 96 uninterrupted, cudnn.deterministic=True: "
             f"bit-identical {same}, max |d| {max_diff:.3e} at {where}")
@@ -1777,7 +1827,7 @@ def phase_loop(smi):
     check(0 < bench["roofline_utilization_analytic"] <= 1, "bench roofline share outside (0, 1]")
     check(bench["device"] == torch.cuda.get_device_name(0), "bench names another device")
     say(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, loop["p50_cadence_ms_per_call"], trace_totals
 
 
 # -- phases 13 and 14: config4 and config5 training --------------------------------
@@ -2377,6 +2427,206 @@ def phase_config2(smi, totals, tmp):
     return launches
 
 
+# -- phase 17: training on clip files ---------------------------------------------------
+
+FILE_CLIPS, EVAL_CLIPS = 512, 64  # config1 clips: 30 frames of 64x64, raw (~190 MB)
+
+
+def native_state():
+    """{file: (mtime_ns, sha256)} of ``native/``, which no build may touch."""
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(os.path.join(ROOT, "native"))):
+        path = os.path.join(ROOT, "native", name)
+        with open(path, "rb") as f:
+            out[name] = (os.stat(path).st_mtime_ns, hashlib.sha256(f.read()).hexdigest())
+    return out
+
+
+def cli_process(argv, timeout=600):
+    """The CLI in a process of its own: (exit code, standard output and error)."""
+    proc = subprocess.run([sys.executable, "-m", "action_conditioned_gans_tpu_torch", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def file_loop_args(data_dir, eval_dir, *extra):
+    """Phase 12's `train` arguments on clip files (TF-free reader, bf16
+    frames on the host), with ``extra`` overrides last."""
+    sets = ["data.source=tfrecord_native", f"data.data_dir={data_dir}",
+            f"data.eval_data_dir={eval_dir}", "data.device_dtype=bfloat16", *extra]
+    return [*LOOP_ARGS, *[a for kv in sets for a in ("--set", kv)]]
+
+
+def file_data_numbers(out):
+    """The loop's p50 cadence and `file data per call` numbers."""
+    import re
+
+    cadence = re.search(r"p50 dispatch cadence ([0-9.]+) ms", out)
+    data = re.search(r"file data per call: fill ([0-9.]+) ms \| wait ([0-9.]+) ms \| (\d+) calls",
+                     out)
+    check(cadence is not None and data is not None, "the file run printed no cadence or no "
+          "`file data` line: " + out[-2000:])
+    return dict(p50_cadence_ms_per_call=float(cadence.group(1)), fill_ms_per_call=float(data[1]),
+                wait_ms_per_call=float(data[2]), calls=int(data[3]))
+
+
+def phase_file_data(smi, phase12_dir, synthetic_cadence_ms, phase12_totals):
+    """Phase 17: `make-data` writes config1 clips and a held-out split in a
+    process of its own; `train` reads them through the TF-free reader at
+    phase 12's settings (counts set to 0 just before the 32-step run, read
+    just after), resumes from step 16 bit for bit across the files' epoch;
+    the cadence and the reader's host and copy times, serially and with 4
+    decode threads; `doctor` in a process of its own; `profile-report` on
+    phase 12's trace, held to chip_smoke's own totals of that trace."""
+    import re
+
+    from action_conditioned_gans_tpu_torch.data import native_tfrecord as nt
+    from action_conditioned_gans_tpu_torch.data import pipeline
+    from action_conditioned_gans_tpu_torch.ops.kernels import build
+    from action_conditioned_gans_tpu_torch.utils.trace_report import load_trace, summarize
+
+    t_phase = time.perf_counter()
+    say(f"phase 17: config1 on clip files ({smi})")
+    before = native_state()
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="files-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
+        data_dir, eval_dir = os.path.join(tmp, "data"), os.path.join(tmp, "eval")
+        # The two make-data processes run at once.
+        t0, procs = time.perf_counter(), {}
+        for label, n, out, seed in (("train", FILE_CLIPS, data_dir, 0),
+                                     ("eval", EVAL_CLIPS, eval_dir, 1)):
+            procs[label] = (subprocess.Popen(
+                [sys.executable, "-m", "action_conditioned_gans_tpu_torch", "make-data",
+                 "--preset", "config1", "--num-clips", str(n), "--set", f"train.seed={seed}",
+                 "--workdir", tmp, "--out", os.path.join(out, "clips.tfrecord")],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+        made = {}
+        for label, (proc, out) in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"make-data exited {proc.returncode}: {text[-2000:]}")
+            made[label] = dict(seconds=time.perf_counter() - t0,
+                               bytes=os.path.getsize(os.path.join(out, "clips.tfrecord")))
+        say("make-data " + json.dumps(made) + f" ({smi})")
+        lib = nt.library_path()
+        check(os.path.exists(lib) and lib.startswith(os.path.join(ROOT, "build", "native")),
+              f"the native library is not built under build/native: {lib}")
+        for label, path, n in (("train", data_dir, FILE_CLIPS), ("eval", eval_dir, EVAL_CLIPS)):
+            clips = list(nt.read_clips(os.path.join(path, "clips.tfrecord"), 30, 64, 64))
+            check(len(clips) == n and clips[0][0].shape == (30, 64, 64, 3)
+                  and clips[0][1].shape == (30, 4), f"the {label} file holds {len(clips)} clips")
+        del clips
+
+        devices, real_batch_at = set(), pipeline.Prefetcher.batch_at
+
+        def batch_at(self, index):
+            out = real_batch_at(self, index)
+            devices.update(v.device.type for v in out.values())
+            return out
+
+        whole, first = os.path.join(tmp, "whole"), os.path.join(tmp, "first")
+        args = file_loop_args(data_dir, eval_dir, "train.checkpoint_every=16")
+        torch.backends.cudnn.deterministic = True
+        pipeline.Prefetcher.batch_at = batch_at
+        try:
+            reset_launches()
+            out = run_cli(["train", *args, "--workdir", whole, "--steps", "32"])
+            launches = read_launches()
+            # 32 steps and one held-out rollout (rollout_length 1: one generator call).
+            check_runs("config1 file loop", launches, {"config1 step": 32, "config1 serving": 1})
+            # The resume starts from the uninterrupted run's step-16 checkpoint.
+            shutil.copytree(os.path.join(whole, "checkpoints", "16"),
+                            os.path.join(first, "checkpoints", "16"))
+            resumed = run_cli(["train", *args, "--workdir", first, "--steps", "32"])
+        finally:
+            pipeline.Prefetcher.batch_at = real_batch_at
+            torch.backends.cudnn.deterministic = deterministic
+        evals = [r for r in metric_lines(out) if "eval_l2" in r]
+        check(len(evals) == 1 and all(np.isfinite(v) for v in evals[0].values()),
+              f"held-out lines {evals}")
+        check(devices == {"cuda"}, f"the file loop's batches were on {devices}")
+        check("resumed from checkpoint at step 16" in resumed, "the second run did not resume")
+        same, max_diff, where = compare_states(final_params(first, 32), final_params(whole, 32))
+        say(f"file resume: 16 + 16 steps against 32 uninterrupted (the 512-clip file wraps in "
+            f"each call), cudnn.deterministic=True: bit-identical {same}, max |d| {max_diff:.3e} "
+            f"at {where}")
+        check(same, f"the resumed file run differs: {max_diff:.3e} at {where}")
+        fill = [t.name for t in threading.enumerate() if t.name == pipeline.FILL_THREAD]
+        check(not fill, f"{len(fill)} reader fill thread(s) outlived their loop")
+
+        # Cadence: 4 calls a run without checkpoints, the synthetic stream
+        # beside the files read serially and on 4 decode threads; each file
+        # run traces its last call for the device's busy share and the copies.
+        timed = {}
+        for label, extra in (("synthetic", None), ("files", "data.decode_threads=0"),
+                             ("files, 4 decode threads", "data.decode_threads=4")):
+            run_args = [*LOOP_ARGS, "--set", "train.checkpoint_every=0"]
+            if extra:
+                run_args = file_loop_args(data_dir, eval_dir, "train.checkpoint_every=0", extra)
+            wd = os.path.join(tmp, f"timed{len(timed)}")
+            out = run_cli(["train", *run_args, "--workdir", wd, "--steps", "64",
+                           *(["--profile-steps", "16"] if extra else [])])
+            if not extra:
+                timed[label] = float(re.search(r"p50 dispatch cadence ([0-9.]+) ms", out).group(1))
+                continue
+            trace = load_trace(os.path.join(wd, "profile"))
+            busy = summarize(trace)
+            # The H2D copies in the traced call: the fill thread's copy of
+            # the next batch (bf16 frames, actions, states) from pinned memory.
+            h2d = [e for e in trace["traceEvents"] if e.get("cat") == "gpu_memcpy"
+                   and "HtoD" in e.get("name", "")]
+            timed[label] = dict(file_data_numbers(out), device_busy_share=busy.busy_share,
+                                device_busy_ms=busy.busy_us / 1e3,
+                                traced_window_ms=busy.window_us / 1e3,
+                                h2d_copies_in_traced_call=len(h2d),
+                                h2d_copy_device_ms_in_traced_call=sum(e["dur"] for e in h2d) / 1e3)
+        line = dict(timed["files"], synthetic_p50_cadence_ms_per_call=timed["synthetic"],
+                    phase12_synthetic_p50_cadence_ms_per_call=synthetic_cadence_ms,
+                    decode_threads_4=timed["files, 4 decode threads"],
+                    h2d_bytes_per_call=128 * 16 * (2 * 64 * 64 * 3 * 2 + 7 * 4),
+                    clips_per_call=128 * 16, make_data=made, card=smi)
+        say("file data " + json.dumps(line))
+
+        rc, text = cli_process(["doctor", *file_loop_args(data_dir, eval_dir),
+                                "--workdir", whole])
+        check(rc == 0, f"doctor exited {rc}: {text[-3000:]}")
+        report = json.loads(text[text.index("{"):text.rindex("}") + 1])
+        for key in ("device", "kernels", "native_lib"):
+            check(report[key]["ok"], f"doctor: {key} {report[key]}")
+        check(report["toolchain"]["nvcc"]["ok"], f"doctor: nvcc {report['toolchain']['nvcc']}")
+        say(f"doctor: ok; device {report['device']}, nvcc {report['toolchain']['nvcc']['version']}"
+            f", kernels {report['kernels']['hash']}, native {report['native_lib']['path']}")
+
+    # profile-report on phase 12's trace: steps 48-64 and the held-out rollout at 64.
+    summary_path = os.path.join(phase12_dir, "report.json")
+    rc, text = cli_process(["profile-report", "--workdir", phase12_dir, "--json", summary_path])
+    check(rc == 0, f"profile-report exited {rc}: {text[-2000:]}")
+    say("profile-report (phase 12's trace):\n" + text[-3000:])
+    with open(summary_path) as f:
+        report = json.load(f)
+    k = report["kernels"]
+    want = {name: EXPECTED["config1 step"][0][name] * 16 + EXPECTED["config1 serving"][0][name]
+            for name in KERNEL_INFO}
+    for name in ("conv_norm_act", "conv_transpose_norm_act", "gn_act_bwd"):
+        check(k[name]["launches"] == want[name], f"profile-report: {name} launched "
+              f"{k[name]['launches']} times in the trace, want {want[name]}")
+    mine = {"kernels 1-2 ms": (k["conv_norm_act"]["device_us"]
+                               + k["conv_transpose_norm_act"]["device_us"]) / 1e3,
+            "kernel 4 ms": k["gn_act_bwd"]["device_us"] / 1e3}
+    for key, value in mine.items():
+        ref = phase12_totals[key]
+        check(abs(value - ref) <= 0.02 * ref, f"profile-report: {key} {value:.4f} against "
+              f"phase 12's {ref:.4f}")
+    say(f"profile-report: launches {[k[n]['launches'] for n in KERNEL_INFO]} (want {want}); "
+        f"{json.dumps(mine)} against phase 12's {json.dumps(phase12_totals)}; steps "
+        f"{report['steps']}, busy share {report['busy_share']:.4f}")
+    after = native_state()
+    check(after == before, f"native/ changed: {before} -> {after}")
+    say(f"phase 17 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -2479,16 +2729,23 @@ def main() -> int:
     totals["gn_act_bwd"]["max_abs_err"] = max(totals["gn_act_bwd"]["max_abs_err"],
                                               config3["max_abs_err"])
     lap("phases 10-11, config3")
-    launches["config1 train loop"] = phase_loop(smi)
-    with tempfile.TemporaryDirectory(prefix="loop-c4-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
-        launches["config4 train loop"], launches["config4 step"] = phase_config4(smi, totals, tmp)
-        launches["config5 step"] = phase_config5(smi, totals)
-        launches.update(phase_served(smi, os.path.join(tmp, "whole")))
-        mark[0] = time.perf_counter()
-        say(f"phase 16: ROADMAP Queue 3 faults 1 and 2 ({smi})")
-        phase_fault1(smi)
-        launches.update(phase_config2(smi, totals, tmp))
-        lap("phase 16")
+    # Phase 12's trace is kept for phase 17's profile-report.
+    with tempfile.TemporaryDirectory(prefix="phase12-", dir=os.path.dirname(build.BUILD_DIR)) as keep:
+        launches["config1 train loop"], synthetic_cadence, phase12_totals = phase_loop(smi, keep)
+        with tempfile.TemporaryDirectory(prefix="loop-c4-",
+                                         dir=os.path.dirname(build.BUILD_DIR)) as tmp:
+            launches["config4 train loop"], launches["config4 step"] = phase_config4(smi, totals,
+                                                                                     tmp)
+            launches["config5 step"] = phase_config5(smi, totals)
+            launches.update(phase_served(smi, os.path.join(tmp, "whole")))
+            mark[0] = time.perf_counter()
+            say(f"phase 16: ROADMAP Queue 3 faults 1 and 2 ({smi})")
+            phase_fault1(smi)
+            launches.update(phase_config2(smi, totals, tmp))
+            lap("phase 16")
+        launches["config1 file loop"] = phase_file_data(smi, keep, synthetic_cadence,
+                                                        phase12_totals)
+        lap("phase 17")
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 

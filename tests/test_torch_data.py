@@ -185,11 +185,18 @@ def test_make_dataset_synthetic_branch():
 
 
 @pytest.mark.parametrize("source", ["tfrecord", "tfrecord_native"])
-def test_file_sources_are_refused(source):
+def test_file_sources_are_refused(source, tmp_path):
+    """A file source without files, or read per host, is refused; with files
+    it is a reader behind a Prefetcher (tests/test_torch_resume_data.py)."""
     cfg = port_config()
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, source=source))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="data_dir"):
         make_dataset(cfg, device="cpu")
+    empty = cfg.replace(data=dataclasses.replace(cfg.data, data_dir=str(tmp_path)))
+    with pytest.raises(FileNotFoundError, match="no TFRecord files match"):
+        make_dataset(empty, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        make_dataset(empty, device="cpu", num_hosts=2)
 
 
 def test_unknown_source_raises():

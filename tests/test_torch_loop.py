@@ -165,9 +165,11 @@ def test_held_out_batches():
     assert tuple(first["frames"].shape) == (2, 4, 16, 16, 3)
     want = SyntheticClips(2, 4, 16, seed=7919, device="cpu").batch_at(0)
     assert torch.equal(first["frames"], want["frames"])
-    tf = cfg.replace(data=dataclasses.replace(cfg.data, source="tfrecord"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sample.held_out_batches(tf, 2, 3, seed=1, device="cpu")
+    # A file source reads its held-out clips lazily: the first batch asks
+    # for the files (tests/test_torch_file_train.py reads them).
+    tf = cfg.replace(data=dataclasses.replace(cfg.data, source="tfrecord_native"))
+    with pytest.raises(ValueError, match="data_dir"):
+        next(sample.held_out_batches(tf, 2, 3, seed=1, device="cpu"))
 
 
 # -- the loop ------------------------------------------------------------------------
@@ -333,8 +335,10 @@ def test_cadence_matches_the_jax_loop(tmp_path, capsys):
 
 def test_unported_sources_and_meshes_are_refused(tmp_path):
     cfg = loop_config(tmp_path)
+    # The file sources train (tests/test_torch_file_train.py); without files
+    # they are refused before a step.
     tf = cfg.replace(data=dataclasses.replace(cfg.data, source="tfrecord_native"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="data_dir"):
         train(tf, max_steps=1, device="cpu")
     for mesh in (dict(data=2), dict(data=1, model=2)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
