@@ -17,11 +17,16 @@ counted by ``torch.utils.flop_counter`` on meta tensors: the Hopper kernels
 are invisible to the counter, and the arithmetic is the same. The JAX bench
 counts its XLA-backend step the same way (``analytic_matmul_cost``). With
 ``remat_rollout`` the count includes the generator forward that the backward
-recomputes (``analytic_flops_count_remat_recompute`` in the line).
+recomputes (``analytic_flops_count_remat_recompute`` in the line). The
+engine knobs (``wgrad``, ``deconv``, ``conv0``) compute the same function, so
+the count is the default engines' under every value: the subpixel rewrite's
+extra border row and column of its inner conv are not work the function
+needs, and the im2col weight gradient has the wgrad conv's arithmetic.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict
 
@@ -55,7 +60,16 @@ class _GlobalOnly:
 def step_flop_counts(cfg: Config) -> Dict[str, int]:
     """FLOPs of one fused G+D step of ``cfg`` (forward and backward) by
     operator (``aten.convolution``, ``aten.convolution_backward``,
-    ``aten.mm``, ...), counted on meta tensors: no memory, no compute."""
+    ``aten.mm``, ...), counted on meta tensors: no memory, no compute. The
+    same number under every engine knob: the step is counted with the
+    default engines."""
+    return counted_step_flops(cfg.replace(model=dataclasses.replace(
+        cfg.model, wgrad="xla", deconv="xla", conv0="xla")))
+
+
+def counted_step_flops(cfg: Config) -> Dict[str, int]:
+    """The operators' FLOPs of one step of ``cfg`` as it runs, its engines
+    included, on meta tensors."""
     from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
 
     m, t = cfg.model, cfg.train

@@ -4,12 +4,6 @@ Every knob is a frozen dataclass with the same names and defaults, so a
 ``ModelConfig`` written as JSON by either package loads in the other. The
 five presets are the same five configurations. ``ModelConfig.dtype`` returns
 a torch dtype.
-
-Engine knobs the port does not run yet (``wgrad="patches"``,
-``deconv="subpixel"``, ``conv0="s2d"``) are accepted here, so an archive that
-records them still parses; :func:`check_ported_engines` refuses them where a
-model is built. :func:`check_ported_train` refuses the training knobs the
-port's train step does not run yet.
 """
 
 from __future__ import annotations
@@ -73,6 +67,10 @@ class ModelConfig:
     # port runs one path for all three: the fused conv blocks' autograd
     # Functions, whose GroupNorm backward is the closed form of ops/gn.py
     # (the gn_act_bwd kernel on CUDA, reference.gn_act_grads on the CPU).
+    # wgrad="patches" (every conv's weight gradient as one im2col product,
+    # ops/wgrad.py), deconv="subpixel" and conv0="s2d" (the split route's
+    # plain conv-transposes and level-0 convs rewritten; a fused layer's
+    # kernel already computes them so) run as ops/api.py describes.
     gn_backward: str = "ad"
     wgrad: str = "xla"
     deconv: str = "xla"
@@ -115,24 +113,6 @@ class ModelConfig:
     @property
     def cond_dim(self) -> int:
         return self.action_dim + self.state_dim
-
-
-# Engine knobs that only say how the JAX package trains or rewrites a layer
-# and that the port does not run yet. Their forward is the same function, so
-# an archive may record any value; the port resets them to these defaults
-# where it reads one. (gn_backward is not among them: every value runs.)
-ENGINE_DEFAULTS = {"wgrad": "xla", "deconv": "xla", "conv0": "xla"}
-
-
-def check_ported_engines(cfg: ModelConfig) -> None:
-    """Raise for an engine knob the port does not run yet."""
-    for name, default in ENGINE_DEFAULTS.items():
-        value = getattr(cfg, name)
-        if value != default:
-            raise NotImplementedError(
-                f"model.{name}={value!r} is not ported yet; the port runs "
-                f"model.{name}={default!r}"
-            )
 
 
 # ---------------------------------------------------------------------------
@@ -229,20 +209,6 @@ class TrainConfig:
     checkpoint_every: int = 1000
     checkpoint_keep: int = 3
     sample_every: int = 1000
-
-
-def check_ported_train(cfg: "Config") -> None:
-    """Raise, where a train step is built, for a training knob the port's
-    train step does not run yet: the R1 penalty (a double backward through
-    the fused conv blocks' autograd Functions) and batch norm."""
-    t, m = cfg.train, cfg.model
-    unported = {
-        "train.r1_weight > 0": t.r1_weight > 0,
-        'model.norm="batch"': m.norm == "batch",
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet; the port's train step refuses it")
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ from typing import Any, Callable, Mapping, Optional
 import numpy as np
 import torch
 
-from action_conditioned_gans_tpu_torch.config import ENGINE_DEFAULTS, Config, ModelConfig, resolve_device
+from action_conditioned_gans_tpu_torch.config import Config, ModelConfig, resolve_device
 from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict, flatten_flax, state_dict_to_flax
 
 _META_KEY = "__model_config__"
@@ -154,15 +154,15 @@ class Predictor:
 
         The architecture comes from the archive. With ``cfg`` given, its
         runtime-only knobs (dtype, backend, engines) win over the archive's;
-        with none, engine knobs that only record how the weights were trained
-        reset to the defaults the port runs.
+        with none, the archive's values are kept, engines included, as the
+        JAX package keeps them.
         """
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z[_META_KEY]))
             params = {k: z[k] for k in z.files if k != _META_KEY}
         model = ModelConfig(**meta)
         if cfg is None:
-            cfg = Config(model=dataclasses.replace(model, **ENGINE_DEFAULTS))
+            cfg = Config(model=model)
         else:
             arch = {
                 f.name: getattr(model, f.name)

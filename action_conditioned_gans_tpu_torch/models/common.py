@@ -65,7 +65,10 @@ class ConvBlock(nn.Module):
     when ``norm="none"``) and ``bias``. Initialisation follows Flax:
     ``truncated_normal(0.02)`` kernels, unit scales, zero biases. With
     ``spectral_norm`` the kernel is divided by its spectral norm at every
-    call (:func:`spectral_normalize`).
+    call (:func:`spectral_normalize`). ``wgrad``, ``deconv`` and ``conv``
+    are the layer's engines (``ops/api.py``), as the reference's
+    ``ConvBlock`` carries them: the models set ``conv`` to
+    ``ModelConfig.conv0`` on their level-0 convs only.
     """
 
     def __init__(
@@ -82,12 +85,16 @@ class ConvBlock(nn.Module):
         transpose: bool = False,
         spectral_norm: bool = False,
         sn_iters: int = 9,
+        wgrad: str = "xla",
+        deconv: str = "xla",
+        conv: str = "xla",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.stride, self.norm, self.groups = stride, norm, groups
         self.act, self.leak, self.transpose = act, leak, transpose
         self.spectral_norm, self.sn_iters = spectral_norm, sn_iters
+        self.wgrad, self.deconv, self.conv = wgrad, deconv, conv
         w = torch.empty(kernel, kernel, in_features, features)
         self.kernel = nn.Parameter(flax_trunc_normal_(w, 0.02, generator))
         self.scale = nn.Parameter(torch.ones(features)) if norm != "none" else None
@@ -106,4 +113,7 @@ class ConvBlock(nn.Module):
             groups=self.groups,
             act=self.act,
             leak=self.leak,
+            wgrad=self.wgrad,
+            deconv=self.deconv,
+            conv=self.conv,
         )

@@ -4,7 +4,8 @@ The candidate next frame is concatenated channel-wise with the current frame
 and the tiled action (and state), so D judges the transition. Then a stack of
 k=4 / stride-2 conv blocks with leaky ReLU (``conv_0`` without norm, the rest
 with the configured norm), ``d_extra_layers`` stride-1 blocks per scale, and a
-flattened dense logit. Parameter names are the Flax ones: ``conv_{i}``,
+flattened dense logit. ``conv_0`` takes ``ModelConfig.conv0``, every block
+``wgrad``. Parameter names are the Flax ones: ``conv_{i}``,
 ``conv_{i}_extra_{j}``, ``logit_kernel`` (F, 1) and ``logit_bias`` (1,).
 """
 
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 
 from action_conditioned_gans_tpu_torch import ops
-from action_conditioned_gans_tpu_torch.config import ModelConfig, check_ported_engines
+from action_conditioned_gans_tpu_torch.config import ModelConfig
 from action_conditioned_gans_tpu_torch.models.common import (
     ConvBlock,
     channels_at,
@@ -29,11 +30,10 @@ from action_conditioned_gans_tpu_torch.models.common import (
 class Discriminator(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_ported_engines(cfg)
         self.cfg = cfg
         common = dict(groups=cfg.group_norm_groups, act="lrelu", leak=cfg.leak,
                       spectral_norm=cfg.d_spectral_norm, sn_iters=cfg.sn_iters,
-                      generator=generator)
+                      wgrad=cfg.wgrad, generator=generator)
         ch = cfg.image_channels
         if cfg.d_condition_frame:
             ch += cfg.image_channels
@@ -43,7 +43,8 @@ class Discriminator(nn.Module):
         for i in range(cfg.d_levels):
             out = channels_at(i, cfg.d_base_channels, cfg.d_max_channels)
             self.add_module(f"conv_{i}", ConvBlock(
-                ch, out, kernel=4, stride=2, norm="none" if i == 0 else cfg.norm, **common))
+                ch, out, kernel=4, stride=2, norm="none" if i == 0 else cfg.norm,
+                conv=cfg.conv0 if i == 0 else "xla", **common))
             ch, size = out, -(-size // 2)
             for j in range(cfg.d_extra_layers):
                 self.add_module(f"conv_{i}_extra_{j}", ConvBlock(

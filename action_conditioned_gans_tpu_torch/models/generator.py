@@ -2,7 +2,9 @@
 
 conv encoder (stride-2 stages) -> action (and state) tiled over the
 bottleneck and concatenated -> 3x3 conv -> conv-transpose decoder -> tanh
-frame in [-1, 1]. Every layer is one fused conv -> norm -> activation block.
+frame in [-1, 1]. Every layer is one conv -> norm -> activation block; the
+level-0 encoder conv takes ``ModelConfig.conv0``, every block ``wgrad`` and
+``deconv`` (only the decoder's conv-transposes use the latter).
 """
 
 from __future__ import annotations
@@ -12,18 +14,19 @@ from typing import Optional
 import torch
 from torch import nn
 
-from action_conditioned_gans_tpu_torch.config import ModelConfig, check_ported_engines
+from action_conditioned_gans_tpu_torch.config import ModelConfig
 from action_conditioned_gans_tpu_torch.models.common import ConvBlock, channels_at, tile_condition
 
 
 class Generator(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_ported_engines(cfg)
         self.cfg = cfg
 
         def block(name, in_ch, **kw):
             kw.setdefault("norm", cfg.norm)
+            kw.setdefault("wgrad", cfg.wgrad)
+            kw.setdefault("deconv", cfg.deconv)
             kw.setdefault("groups", cfg.group_norm_groups)
             kw.setdefault("leak", cfg.leak)
             self.add_module(name, ConvBlock(in_ch, generator=generator, **kw))
@@ -32,7 +35,8 @@ class Generator(nn.Module):
         for i in range(cfg.g_levels):
             out = channels_at(i, cfg.g_base_channels, cfg.g_max_channels)
             block(f"enc_{i}", ch, features=out, kernel=4, stride=2,
-                  norm="none" if i == 0 else cfg.norm, act="lrelu")
+                  norm="none" if i == 0 else cfg.norm, act="lrelu",
+                  conv=cfg.conv0 if i == 0 else "xla")
             ch = out
         bott = channels_at(cfg.g_levels - 1, cfg.g_base_channels, cfg.g_max_channels)
         block("bottleneck", ch + cfg.cond_dim, features=bott, kernel=3, stride=1, act="relu")
@@ -61,7 +65,7 @@ class Generator(nn.Module):
         cfg = self.cfg
         if cfg.state_dim and state is None:
             raise ValueError("model config has state_dim > 0 but no state was passed")
-        x = frame.to(cfg.dtype)
+        x = frame.to(cfg.dtype).contiguous()  # a time-chunk view of the fold may not be
         skips = []
         for i in range(cfg.g_levels):
             x = getattr(self, f"enc_{i}")(x)

@@ -1,15 +1,34 @@
 """Layer ops the models call: the port of the JAX package's ``ops/api.py`` as
-it runs with ``backend="pallas"``.
+it runs with ``backend="pallas"``, with its engine knobs.
 
 Each conv block is routed as the reference routes it (``ops/envelope.py``):
-"fused" layers run one fused conv kernel; "split" layers run the plain conv
-(cuDNN on the card, XLA in the reference, outside any kernel of either) and
+"fused" layers run one fused conv kernel; "split" layers run the conv and
 then :func:`norm_act`, whose GroupNorm goes to the standalone
-GroupNorm+activation kernel. The route depends on shapes and dtype only, so
-it is the same on the CPU and on the card. ``ROUTES`` counts the routes
-taken: "fused" and "split" per conv block, and "group_plain" per GroupNorm
-that :func:`norm_act` sends to the plain composite because it lies off the
-standalone kernel's envelope.
+GroupNorm+activation kernel. The split route's conv is the reference's
+Pallas ``conv2d`` / ``conv2d_transpose``: where the bare conv fits the
+kernel's envelope it runs kernel 1 or 2 with ``kind="none"``, ``act="none"``
+and no bias ("bare"; only batch-norm layers reach it, since a GroupNorm or
+norm-free layer whose conv fits is fused); otherwise the plain conv (cuDNN
+on the card, XLA in the reference, outside any kernel of either) with the
+layer's engines: ``conv="s2d"`` (the models' level-0 convs), ``deconv=
+"subpixel"`` and ``wgrad="patches"`` (``ops/wgrad.py``). A fused or bare
+conv already embodies what ``conv`` / ``deconv`` ask for (kernel 1 rewrites
+stride 2 by space-to-depth, kernel 2 computes the four subpixel phases), and
+its backward takes ``wgrad``. The route depends on shapes and dtype only, so
+it is the same on the CPU and on the card.
+
+:func:`plain_route` is the route of the R1 penalty's inner D call: every
+conv block and :func:`norm_act` inside it runs the plain ops of
+``ops/reference.py`` (with the layer's engines) on every device, which
+autograd can differentiate twice. The step picks it by config; nothing
+falls back to it.
+
+``ROUTES`` counts the routes taken: "fused" and "split" per conv block
+outside the plain route, "bare" per split conv on kernel 1 or 2, "plain"
+per conv block on the plain route, "group_plain" per GroupNorm that
+:func:`norm_act` sends to the plain composite because it lies off the
+standalone kernel's envelope, "s2d" and "subpixel" per conv rewritten by
+its engine, and "patches" per im2col weight gradient computed.
 
 The tensor's device decides the rest: a CUDA tensor goes to the Hopper
 kernel of the op or the call raises; a CPU tensor takes the plain version.
@@ -18,20 +37,34 @@ Nothing falls back from a kernel to the plain version.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
 from action_conditioned_gans_tpu_torch.ops import envelope, reference
+from action_conditioned_gans_tpu_torch.ops import wgrad as _wgrad
+from action_conditioned_gans_tpu_torch.ops.common import ROUTES
 from action_conditioned_gans_tpu_torch.ops.kernels import conv as _conv
 from action_conditioned_gans_tpu_torch.ops.kernels import norm_act as _norm_act
 
-ROUTES = {"fused": 0, "split": 0, "group_plain": 0}
+_PLAIN = [False]  # inside plain_route()
 
 
 def reset_routes() -> None:
     for name in ROUTES:
         ROUTES[name] = 0
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every conv block and :func:`norm_act` called inside runs the plain ops
+    (the reference's XLA backend, on which it runs R1)."""
+    outer, _PLAIN[0] = _PLAIN[0], True
+    try:
+        yield
+    finally:
+        _PLAIN[0] = outer
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -43,14 +76,52 @@ def leaky_relu(x: torch.Tensor, leak: float = 0.2) -> torch.Tensor:
     return reference.leaky_relu(x, leak)
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
-    """The plain SAME conv (the reference's XLA conv off the fused envelope)."""
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, wgrad: str = "xla",
+           conv: str = "xla") -> torch.Tensor:
+    """The plain SAME conv (the reference's XLA conv) with the layer's
+    engines: the space-to-depth rewrite where ``conv="s2d"`` applies, else
+    the plain conv, with the im2col weight gradient for ``wgrad="patches"``."""
+    if conv == "s2d" and reference.s2d_conv_supported(w.shape, stride) and not (
+            x.shape[1] % 2 or x.shape[2] % 2):
+        ROUTES["s2d"] += 1
+        return reference.conv2d_s2d(x, w, stride=stride)
+    if wgrad == "patches":
+        return _wgrad.conv2d_patches_wgrad(x, w, stride)
     return reference.conv2d(x, w, stride=stride)
 
 
-def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2) -> torch.Tensor:
-    """The plain SAME conv-transpose (k=4, stride 2)."""
+def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2, wgrad: str = "xla",
+                     deconv: str = "xla") -> torch.Tensor:
+    """The plain SAME conv-transpose (k=4, stride 2) with the layer's
+    engines: the subpixel decomposition for ``deconv="subpixel"``, else the
+    plain conv-transpose, with the im2col weight gradient for
+    ``wgrad="patches"``."""
+    if deconv == "subpixel" and reference.subpixel_deconv_supported(w.shape, stride):
+        ROUTES["subpixel"] += 1
+        return reference.conv2d_transpose_subpixel(x, w, stride=stride)
+    if wgrad == "patches":
+        return _wgrad.conv2d_transpose_patches_wgrad(x, w, stride)
     return reference.conv2d_transpose(x, w, stride=stride)
+
+
+def _plain_conv(x, w, stride, transpose, wgrad, deconv, conv):
+    if transpose:
+        return conv2d_transpose(x, w, stride=stride, wgrad=wgrad, deconv=deconv)
+    return conv2d(x, w, stride=stride, wgrad=wgrad, conv=conv)
+
+
+def _split_conv(x, w, stride, transpose, wgrad, deconv, conv):
+    """A split layer's conv: the reference's Pallas ``conv2d`` /
+    ``conv2d_transpose`` (``ops/pallas/conv.py``), kernel 1 or 2 as a bare
+    conv where it fits the envelope at the input's itemsize, else the plain
+    conv with the layer's engines."""
+    fits = (envelope.conv_transpose_norm_act_supported if transpose
+            else envelope.conv_norm_act_supported)
+    if fits(x.shape, w.shape, stride, "none", x.dtype):
+        ROUTES["bare"] += 1
+        fn = _conv.conv_transpose_norm_act if transpose else _conv.conv_norm_act
+        return fn(x, w, None, None, stride=stride, kind="none", groups=1, act="none", wgrad=wgrad)
+    return _plain_conv(x, w, stride, transpose, wgrad, deconv, conv)
 
 
 def norm_act(
@@ -98,18 +169,26 @@ def conv_norm_act(
     eps: float = 1e-5,
     act: str = "lrelu",
     leak: float = 0.2,
+    wgrad: str = "xla",
+    deconv: str = "xla",
+    conv: str = "xla",
 ) -> torch.Tensor:
     """The conv(-transpose) -> norm -> activation block of both models.
 
     On the fused route the call goes to ``ops/kernels/conv.py`` (through its
     autograd Functions when a gradient is needed); on the split route to
-    :func:`conv2d` / :func:`conv2d_transpose` and then :func:`norm_act`."""
+    :func:`_split_conv` and then :func:`norm_act`; inside
+    :func:`plain_route` to the plain conv with the layer's engines and
+    ``reference.norm_act``."""
+    norm = dict(kind=kind, groups=groups, eps=eps, act=act, leak=leak)
+    if _PLAIN[0]:
+        ROUTES["plain"] += 1
+        y = _plain_conv(x, w, stride, transpose, wgrad, deconv, conv)
+        return reference.norm_act(y, scale, bias, **norm)
     route = envelope.route(x.shape, w.shape, stride, transpose, kind, groups, x.dtype)
     ROUTES[route] += 1
     if route == "fused":
         fn = _conv.conv_transpose_norm_act if transpose else _conv.conv_norm_act
-        return fn(
-            x, w, scale, bias, stride=stride, kind=kind, groups=groups, eps=eps, act=act, leak=leak
-        )
-    y = (conv2d_transpose if transpose else conv2d)(x, w, stride=stride)
-    return norm_act(y, scale, bias, kind=kind, groups=groups, eps=eps, act=act, leak=leak)
+        return fn(x, w, scale, bias, stride=stride, wgrad=wgrad, **norm)
+    y = _split_conv(x, w, stride, transpose, wgrad, deconv, conv)
+    return norm_act(y, scale, bias, **norm)

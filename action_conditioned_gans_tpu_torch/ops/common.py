@@ -3,7 +3,9 @@
 Port of the JAX package's ``ops/pallas/common.py``: the activation table,
 the GroupNorm group-count rule, and the per-(sample, group) GroupNorm that
 the fused kernels compute in their epilogue; and of ``ops/gn.py``'s
-``act_bwd``, the activation cotangent rebuilt from the saved output.
+``act_bwd``, the activation cotangent rebuilt from the saved output. Also
+``ROUTES``, the route counts of ``ops/api.py`` (kept here so that
+``ops/wgrad.py`` and the kernel wrappers count into it too).
 """
 
 from __future__ import annotations
@@ -11,6 +13,10 @@ from __future__ import annotations
 import torch
 
 ACTIVATIONS = ("none", "lrelu", "relu", "tanh")
+
+# The routes the layer ops took (``ops/api.py`` documents each key).
+ROUTES = {"fused": 0, "split": 0, "group_plain": 0, "bare": 0, "plain": 0, "s2d": 0,
+          "subpixel": 0, "patches": 0}
 
 
 def apply_act(y: torch.Tensor, act: str, leak: float) -> torch.Tensor:

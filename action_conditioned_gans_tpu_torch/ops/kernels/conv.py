@@ -29,7 +29,15 @@ re-runs the forward:
   ops;
 * then dx and dw from ``aten.convolution_backward``, which runs only the
   backward-data / backward-weight convolutions (``jax.linear_transpose`` in
-  the reference), honouring ``ctx.needs_input_grad``.
+  the reference), honouring ``ctx.needs_input_grad``. With
+  ``wgrad="patches"`` dw is instead the one im2col product of
+  ``ops/wgrad.py``, so the knob means the same on every route.
+
+The engine knobs ``deconv="subpixel"`` and ``conv0="s2d"`` need nothing
+here: kernel 2 already computes a conv-transpose as its four subpixel phases
+(the reference's ``ops/pallas/conv.py`` decomposition), and kernel 1 already
+rewrites a stride-2 conv by space-to-depth (``envelope.conv_fits``), so a
+fused layer computes what those knobs ask for.
 
 On the CPU the same Functions run with the plain forward (``y`` in the
 compute dtype, statistics recomputed in the backward, as the JAX VJP does).
@@ -43,7 +51,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from action_conditioned_gans_tpu_torch.ops import reference
+from action_conditioned_gans_tpu_torch.ops import reference, wgrad as _wgrad
 from action_conditioned_gans_tpu_torch.ops.common import ACTIVATIONS, act_bwd, resolve_groups, same_pad
 from action_conditioned_gans_tpu_torch.ops.kernels import build, gn_bwd, library
 
@@ -76,6 +84,7 @@ class _Opts:
     eps: float
     act: str
     leak: float
+    wgrad: str = "xla"  # "patches": dw as one im2col product (ops/wgrad.py)
 
 
 def _plain(x, w, scale, bias, o: "_Opts"):
@@ -253,9 +262,14 @@ def _forward_no_grad(x, w, scale, bias, o: _Opts):
 def _conv_backward(dy, x, w, o: _Opts, need_x: bool, need_w: bool):
     """(dx NHWC, dw HWIO) of the block's conv for the cotangent ``dy`` of its
     output, through ``aten.convolution_backward`` in the compute dtype. Only
-    the backward convolutions that ``need_x`` / ``need_w`` ask for run."""
+    the backward convolutions that ``need_x`` / ``need_w`` ask for run; with
+    ``wgrad="patches"`` dw is the im2col product of ``ops/wgrad.py``."""
+    patches_dw = None
+    if need_w and o.wgrad == "patches":
+        patches_dw = _wgrad.patches_dw(x, dy.to(x.dtype), w.shape, o.stride, o.transpose)
+        need_w = False
     if not (need_x or need_w):
-        return None, None
+        return None, None if patches_dw is None else patches_dw.to(w.dtype).contiguous()
     dt = x.dtype
     cl = torch.channels_last
     gy = dy.to(dt).permute(0, 3, 1, 2)
@@ -286,6 +300,8 @@ def _conv_backward(dy, x, w, o: _Opts, need_x: bool, need_w: bool):
             dxn = dxn[:, :, :h, :wd]
         dw = dwn.permute(2, 3, 1, 0) if need_w else None
     dx = dxn.permute(0, 2, 3, 1).contiguous().to(x.dtype) if need_x else None
+    if patches_dw is not None:
+        dw = patches_dw
     if dw is not None:
         dw = dw.to(w.dtype).contiguous()
     return dx, dw
@@ -348,9 +364,11 @@ def conv_norm_act(
     eps: float = 1e-5,
     act: str = "lrelu",
     leak: float = 0.2,
+    wgrad: str = "xla",
 ) -> torch.Tensor:
-    """SAME conv (NHWC x HWIO) -> GroupNorm or bias -> affine -> activation."""
-    o = _Opts(False, stride, kind, groups, float(eps), act, float(leak))
+    """SAME conv (NHWC x HWIO) -> GroupNorm or bias -> affine -> activation;
+    ``wgrad`` picks the weight gradient's engine."""
+    o = _Opts(False, stride, kind, groups, float(eps), act, float(leak), wgrad)
     if _needs_grad(x, w, scale, bias):
         return ConvNormActFn.apply(x, w, scale, bias, o)
     return _forward_no_grad(x, w, scale, bias, o)
@@ -368,9 +386,11 @@ def conv_transpose_norm_act(
     eps: float = 1e-5,
     act: str = "relu",
     leak: float = 0.2,
+    wgrad: str = "xla",
 ) -> torch.Tensor:
-    """k=4 / stride-2 SAME conv-transpose -> GroupNorm or bias -> affine -> act."""
-    o = _Opts(True, stride, kind, groups, float(eps), act, float(leak))
+    """k=4 / stride-2 SAME conv-transpose -> GroupNorm or bias -> affine ->
+    act; ``wgrad`` picks the weight gradient's engine."""
+    o = _Opts(True, stride, kind, groups, float(eps), act, float(leak), wgrad)
     if _needs_grad(x, w, scale, bias):
         return ConvTransposeNormActFn.apply(x, w, scale, bias, o)
     return _forward_no_grad(x, w, scale, bias, o)

@@ -1,6 +1,7 @@
-"""Plain PyTorch layer ops: the port of the JAX package's ``ops/xla.py``, and
-of ``ops/gn.py``'s closed-form GroupNorm+activation backward
-(:func:`gn_act_grads`).
+"""Plain PyTorch layer ops: the port of the JAX package's ``ops/xla.py`` (with
+its two exact rewrites, :func:`conv2d_transpose_subpixel` and
+:func:`conv2d_s2d`), and of ``ops/gn.py``'s closed-form GroupNorm+activation
+backward (:func:`gn_act_grads`).
 
 These are what runs on the CPU and the oracle the Hopper kernels are held
 to. The layout at every function is the JAX package's: NHWC activations and
@@ -50,6 +51,74 @@ def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2) -> to
     wt = w.to(x.dtype).flip(0, 1).permute(2, 3, 0, 1)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2, padding=1)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _conv_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 VALID conv, NHWC x HWIO -> NHWC (``w`` already in x's dtype)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _phase_kernels(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """The four 2x2 phase kernels ``w[r::2, c::2]`` of a 4x4 kernel, phase
+    p = 2r + c, stacked along ``dim``."""
+    return torch.cat([w[r::2, c::2] for r in range(2) for c in range(2)], dim=dim)
+
+
+def subpixel_deconv_supported(w_shape, stride: int) -> bool:
+    """The envelope of the exact subpixel decomposition: k=4 / stride 2
+    (SAME, the only padding the port runs), the models' one conv-transpose
+    geometry."""
+    return len(w_shape) == 4 and stride == 2 and w_shape[0] == 4 and w_shape[1] == 4
+
+
+def conv2d_transpose_subpixel(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2) -> torch.Tensor:
+    """:func:`conv2d_transpose` by the subpixel-phase decomposition
+    (``ModelConfig.deconv="subpixel"``; the JAX package's ``ops/xla.py``).
+
+    With ``x`` padded by 1, ``y[2a+r, 2b+c] = sum_{dy,dx in {0,1}}
+    x_pad[a+dy+r, b+dx+c] @ w[2dy+r, 2dx+c]``: each output phase (r, c) is a
+    stride-1 2x2 conv with the phase kernel ``w[r::2, c::2]``. The four
+    phase kernels stacked on the output channels make the op ONE VALID 2x2
+    conv to 4*Cout channels, then phase slices and depth-to-space. Plain
+    differentiable ops. Off the k=4 / stride-2 envelope it is
+    :func:`conv2d_transpose`, as in the reference."""
+    if not subpixel_deconv_supported(w.shape, stride):
+        return conv2d_transpose(x, w, stride=stride)
+    b, h, w_, _ = x.shape
+    cout = w.shape[3]
+    z = _conv_valid(F.pad(x, (0, 0, 1, 1, 1, 1)), _phase_kernels(w.to(x.dtype), -1))
+    phases = [z[:, r:r + h, c:c + w_, (2 * r + c) * cout:(2 * r + c + 1) * cout]
+              for r in range(2) for c in range(2)]
+    y = torch.stack(phases, dim=3).reshape(b, h, w_, 2, 2, cout)
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w_, cout)
+
+
+def s2d_conv_supported(w_shape, stride: int) -> bool:
+    """The envelope of the exact space-to-depth rewrite: k=4 / stride 2
+    (SAME), the models' strided geometry; even spatial sizes are checked
+    where it is called."""
+    return len(w_shape) == 4 and stride == 2 and w_shape[0] == 4 and w_shape[1] == 4
+
+
+def conv2d_s2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2) -> torch.Tensor:
+    """:func:`conv2d` by space-to-depth (``ModelConfig.conv0="s2d"``; the
+    JAX package's ``ops/xla.py``).
+
+    With ``x`` padded by 1 (SAME for k=4 / stride 2 / even sizes),
+    ``y[i, j] = sum_{p,q} x_pad[2i+p, 2j+q] @ w[p, q]``; p = 2dp + r reads
+    phase (r, c) of the space-to-depth input at offset (dp, dq): ONE
+    stride-1 VALID 2x2 conv over the (H/2+1, W/2+1, 4*Cin) phase tensor with
+    the phase kernels stacked on the input channels. Plain differentiable
+    ops. Off the envelope, or for an odd size (SAME pads (1, 2) there), it
+    is :func:`conv2d`, as in the reference."""
+    if not s2d_conv_supported(w.shape, stride) or x.shape[1] % 2 or x.shape[2] % 2:
+        return conv2d(x, w, stride=stride)
+    b, h, w_, cin = x.shape
+    h2, w2 = (h + 2) // 2, (w_ + 2) // 2
+    xs = F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(b, h2, 2, w2, 2, cin)
+    xs = xs.permute(0, 1, 3, 2, 4, 5).reshape(b, h2, w2, 4 * cin)
+    return _conv_valid(xs, _phase_kernels(w.to(x.dtype), 2))
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -8,11 +8,17 @@ One step, with the JAX package's semantics:
    each fed the ground truth or the previous prediction; ``remat_rollout``
    checkpoints each generator call (``train/rollout.py``);
 2. D's loss and gradient on real vs detached fake transitions, both halves
-   in ONE discriminator call, then D's Adam update (``disc_steps`` times).
-   With ``disc_microbatch`` the folded transitions go through D in ``nc``
-   equal chunks, the loss and gradient accumulated as loss/nc and grad/nc;
-   with ``d_augment`` real and fake are augmented with their own parameters
-   (``train/augment.py``);
+   in ONE discriminator call (two calls with ``norm="batch"``, whose
+   statistics must not mix them), then D's Adam update (``disc_steps``
+   times). With ``disc_microbatch`` the folded transitions go through D in
+   ``nc`` equal chunks, the loss and gradient accumulated as loss/nc and
+   grad/nc (batch norm keeps one chunk); with ``d_augment`` real and fake
+   are augmented with their own parameters (``train/augment.py``). With
+   ``r1_weight`` the loss gains (r1_weight / 2) * E[|grad_x sum D(x)|^2] at
+   the augmented real transitions, conditioning held fixed; that inner D
+   call runs on ``ops.api.plain_route``, the plain ops autograd can
+   differentiate twice (the reference runs R1 on its XLA backend), while the
+   loss's own D call keeps the kernels;
 3. G's adversarial + ``recon_weight`` * reconstruction loss against the
    UPDATED D. D's parameters are frozen for this call (no D weight gradient
    is computed, as in JAX): the head is differentiated with respect to the
@@ -20,6 +26,9 @@ One step, with the JAX package's semantics:
    by 1/nc), the augmentation inside it and the reconstruction on the raw
    predictions, and that cotangent is chained once into G through the saved
    forward. Then G's Adam update and, with ``ema_decay``, the EMA of G.
+
+With ``norm="batch"`` the teacher-forced fold runs in time chunks of 1, so
+G's statistics are per timestep, as in the step-by-step rollout.
 
 The step's randomness (the rollout mask, the augmentation parameters) is a
 pure function of (seed, step): :func:`draw_step_randoms`. A resumed run
@@ -39,9 +48,10 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from action_conditioned_gans_tpu_torch.config import Config, check_ported_train, resolve_device
+from action_conditioned_gans_tpu_torch.config import Config, resolve_device
 from action_conditioned_gans_tpu_torch.data.synthetic import batch_seed
 from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
+from action_conditioned_gans_tpu_torch.ops import api
 from action_conditioned_gans_tpu_torch.train import augment
 from action_conditioned_gans_tpu_torch.train import losses as L
 from action_conditioned_gans_tpu_torch.train.rollout import (
@@ -102,11 +112,12 @@ def draw_step_randoms(cfg: Config, seed: int, step: int, b: int, horizon: int,
     return out
 
 
-def disc_chunks(n_flat: int, disc_microbatch: int) -> int:
+def disc_chunks(n_flat: int, disc_microbatch: int, norm: str = "group") -> int:
     """How many chunks D runs over ``n_flat`` transitions: n_flat / mb for
     mb the largest divisor of ``n_flat`` at most ``disc_microbatch``; 1
-    when microbatching is off or the chunk holds them all."""
-    mb = disc_microbatch if 0 < disc_microbatch < n_flat else 0
+    when microbatching is off, the chunk holds them all, or ``norm`` is
+    "batch" (per-chunk statistics would change the function)."""
+    mb = disc_microbatch if 0 < disc_microbatch < n_flat and norm != "batch" else 0
     while mb and n_flat % mb:
         mb -= 1
     return n_flat // mb if mb else 1
@@ -124,10 +135,16 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
     JAX loop passes) and the state's step, unless ``randoms`` (a
     :class:`StepRandoms`) gives them. It updates the state's parameter,
     moment and EMA tensors in place and returns the state with ``step`` + 1,
-    plus the metrics as 0-d float32 tensors under the JAX package's keys.
+    plus the metrics as 0-d float32 tensors under the JAX package's keys
+    (``d_r1`` with ``r1_weight`` > 0).
     """
-    check_ported_train(cfg)
     m, t = cfg.model, cfg.train
+    if t.r1_weight > 0 and m.backend == "pallas":
+        raise ValueError(
+            "train.r1_weight > 0 needs model.backend='xla': the JAX package cannot "
+            "differentiate its Pallas kernels twice (its R1 step fails to linearize), so the "
+            "reference trains R1 only on its XLA backend; the port runs R1's inner D call on "
+            "the plain ops under backend='xla'")
     aug_ops = augment.parse_policy(t.d_augment)
     if t.gan_loss not in ("ce", "hinge"):
         raise ValueError(f"unknown gan_loss {t.gan_loss!r} (expected 'ce' or 'hinge')")
@@ -170,6 +187,17 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
             return L.generator_hinge_adv_loss(fake_logits)
         return L.generator_adv_loss(fake_logits)
 
+    batch_norm = m.norm == "batch"
+
+    def r1_penalty(d_params, real, cond, action, st):
+        """E over the batch of |grad_x sum D(x)|^2 at ``real`` (float32),
+        differentiable in ``d_params``: the inner D call on the plain route."""
+        x = real.detach().requires_grad_()
+        with api.plain_route():
+            score = d_apply(d_params, x, cond, action, st).sum()
+        (gx,) = torch.autograd.grad(score, x, create_graph=True)
+        return gx.float().square().sum(dim=tuple(range(1, gx.dim()))).mean()
+
     def train_step(state: TrainState, batch, randoms: Optional[StepRandoms] = None):
         where = next(iter(state.g_params.values())).device
         if where.type != dev.type or dev.index not in (None, where.index):
@@ -191,8 +219,9 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
             preds = rollout_generator(g_apply, g_leaves, frames, actions, states,
                                       randoms.use_pred, remat=t.remat_rollout)
         else:
+            # Batch norm keeps per-timestep statistics: one time step a chunk.
             preds = rollout_teacher_forced(g_apply, g_leaves, frames, actions, states,
-                                           time_chunk=t.rollout_time_chunk,
+                                           time_chunk=1 if batch_norm else t.rollout_time_chunk,
                                            remat=t.remat_rollout)
         flat_preds = _fold_time(preds)
 
@@ -205,7 +234,7 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
         fake = flat_preds.detach()
         real_d, cond_real = augment.apply(aug_ops, randoms.u_real, real_next, cond_frames)
         fake_d, cond_fake = augment.apply(aug_ops, randoms.u_fake, fake, cond_frames)
-        nc = disc_chunks(real_next.shape[0], t.disc_microbatch)
+        nc = disc_chunks(real_next.shape[0], t.disc_microbatch, m.norm)
 
         def chunks(x):
             return [None] * nc if x is None else x.split(x.shape[0] // nc)
@@ -218,17 +247,26 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
         two = lambda x: None if x is None else torch.cat([x, x])  # noqa: E731
 
         # D update(s) on the detached fakes; real and fake share one D call
-        # per chunk; loss, accuracies and gradient accumulate as x / nc.
+        # per chunk (two under batch norm); loss, accuracies, R1 and gradient
+        # accumulate as x / nc.
         for _ in range(max(t.disc_steps, 1)):
             d_leaves = leaves(state.d_params)
-            d_loss = real_acc = fake_acc = d_grads = None
+            d_loss = real_acc = fake_acc = d_r1 = d_grads = None
             for rl, fk, cr, cf, ac, st in zip(*map(chunks, (
                     real_d, fake_d, cond_real, cond_fake, flat_actions, flat_states))):
-                logits = d_apply(d_leaves, torch.cat([rl, fk.float()]), torch.cat([cr, cf]),
-                                 two(ac), two(st))
-                real_logits, fake_logits = logits.chunk(2)
+                if batch_norm:
+                    real_logits = d_apply(d_leaves, rl, cr, ac, st)
+                    fake_logits = d_apply(d_leaves, fk, cf, ac, st)
+                else:
+                    logits = d_apply(d_leaves, torch.cat([rl, fk.float()]), torch.cat([cr, cf]),
+                                     two(ac), two(st))
+                    real_logits, fake_logits = logits.chunk(2)
                 loss = adv_loss_d(real_logits, fake_logits)
                 accs = L.discriminator_accuracy(real_logits, fake_logits)
+                if t.r1_weight > 0:
+                    r1 = r1_penalty(d_leaves, rl, cr, ac, st)
+                    loss = loss + 0.5 * t.r1_weight * r1
+                    d_r1 = mean_of(d_r1, r1)
                 grads = torch.autograd.grad(loss, list(d_leaves.values()))
                 if nc > 1:
                     grads = torch._foreach_div(grads, float(nc))
@@ -269,6 +307,8 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
             "d_real_acc": real_acc, "d_fake_acc": fake_acc,
         }
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if t.r1_weight > 0:  # the last disc_steps iteration's, as d_loss
+            metrics["d_r1"] = d_r1.detach()
         metrics["ss_prob"] = torch.tensor(ss_prob, dtype=torch.float32, device=dev)
         if t.log_grad_norms:
             # Pre-clip global norms; D's is the last disc_steps iteration's.

@@ -208,10 +208,39 @@ Phases, each of which fails the run (non-zero exit, no final line):
     1, 2 and 4's launches equal EXPECTED x 16 steps plus the held-out
     generator call, and kernels 1-2's and kernel 4's device ms within 2% of
     phase 12's own ``profile: trace totals`` line (chip_smoke's kernel table).
+18. R1, batch norm and the engine knobs (PHASE18_OVERRIDES). The committed
+    JAX fixture tests/fixtures/torch_port_tiny_r1_bn.npz (a tiny four-step
+    run with R1 and one with batch norm) replayed on cuda in float32 within
+    tests/test_golden.py's tolerances (d_r1 at d_loss's). (a) config1 with
+    train.r1_weight=10: ``train`` with phase 12's arguments for 32 steps
+    (counts set to 0 just before, read just after: EXPECTED["config1 r1
+    step"] x 32, R1's inner D call on the plain route, 4 conv blocks a step
+    in ROUTES["plain"], plus the held-out rollout's generator call), d_r1
+    finite and positive on every metric line; one counted step, 20 timed
+    steps, a profile, peak memory; then in float32 with float32 moments at
+    B=4 one R1 step on cuda against the CPU's plain path (d_r1 within 1e-4
+    relative, D's first moments within 1e-4 + 1e-3 rel) and, cuDNN off,
+    disc_microbatch=2 against 0 at tests/test_train_step.py's R1 bars.
+    (b) config1 with model.norm=batch: ``train`` likewise (EXPECTED["config1
+    bn step"]: every batch-norm layer split, its conv a bare kernel-1 / 2
+    call, 14 a step, D run on real and fake apart); one counted step whose
+    distinct conv calls are held to their plain versions (bfloat16 3e-2;
+    the bare ones also in float32 within 1e-3 + 1e-3 rel); a step with
+    disc_microbatch=64 bit-identical to one without (cudnn.deterministic);
+    Predictor.predict at B=128 and a T=10 B=16 rollout counted against
+    EXPECTED["config1 bn serving"]. (c) config5 as phase 14 trains it with
+    deconv=subpixel + conv0=s2d, and with wgrad=patches (the configs refuse
+    either rewrite beside patches): 2 warm-up steps, one counted step (the
+    engines' rewrites and im2col products in ROUTES: EXPECTED_ROUTES), 3
+    timed steps, peak memory, a profile; at config5's widths, B=2, T=4,
+    float32, each engine's step against the default step (see
+    ``phase_engines_reduced``); each rewrite alone at config5's split shapes
+    against the plain op (``phase_rewrites_alone``). (d) The phase's wall
+    seconds.
 
 Then a ``kernels`` JSON line (per kernel: launches summed over every main
 path, the config2, config4 and config5 steps, the config1 file, config2 and
-config4 loops and the AOT programs included; max |err|, kernel, plain, bound and library
+config4 loops, the AOT programs and phase 18's paths included; max |err|, kernel, plain, bound and library
 times; kernel 4's over the config1 step's calls, and its config3 step's sums
 beside them), then the final line ``{"ok": true, "device": {...}}``.
 """
@@ -238,6 +267,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_tiny_generator.npz")
 TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_tiny_train.npz")
+R1_BN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_tiny_r1_bn.npz")
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -306,6 +336,45 @@ EXPECTED = {
     "config5 step": (dict(conv_norm_act=92, conv_transpose_norm_act=0, group_norm_act=266,
                           gn_act_bwd=223),
                      dict(conv_norm_act=dict(wgmma=92)), (92, 334), 161),
+    # Phase 18. R1 adds a plain-route D call on the real half (EXPECTED_ROUTES);
+    # its kernels are the config1 step's.
+    "config1 r1 step": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
+                             gn_act_bwd=11),
+                        dict(conv_norm_act=dict(wgmma=9, wmma=3),
+                             conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (15, 0), 0),
+    # Batch norm: enc_0, dec_0 and D conv_0 fused; every batch-norm layer
+    # split, its conv a bare kernel-1 / kernel-2 call; D twice in the update
+    # (real, fake) and once in the G head; no GroupNorm, so no kernel 4.
+    "config1 bn step": (dict(conv_norm_act=16, conv_transpose_norm_act=3, group_norm_act=0,
+                             gn_act_bwd=0),
+                        dict(conv_norm_act=dict(wgmma=12, wmma=4),
+                             conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (5, 14), 0),
+    "config1 bn serving": (dict(conv_norm_act=4, conv_transpose_norm_act=3, group_norm_act=0,
+                                gn_act_bwd=0),
+                           dict(conv_norm_act=dict(wgmma=3, wmma=1),
+                                conv_transpose_norm_act=dict(wgmma=2, narrow=1)), (2, 5)),
+    # The engines change no kernel call of the config5 step: they rewrite
+    # its split convs (EXPECTED_ROUTES).
+    "config5 engines step": (dict(conv_norm_act=92, conv_transpose_norm_act=0, group_norm_act=266,
+                                  gn_act_bwd=223),
+                             dict(conv_norm_act=dict(wgmma=92)), (92, 334), 161),
+    "config5 patches step": (dict(conv_norm_act=92, conv_transpose_norm_act=0, group_norm_act=266,
+                                  gn_act_bwd=223),
+                             dict(conv_norm_act=dict(wgmma=92)), (92, 334), 161),
+}
+# The routes beside (fused, split) per generator call or step, 0 where not
+# given (ops/api.py): "bare" split convs on kernel 1 or 2, "plain" conv
+# blocks of R1's inner D call, "s2d" / "subpixel" convs rewritten (G enc_0
+# and D conv_0 under remat and microbatching: 30 + 8; G dec_4..0: 5 x 30),
+# "patches" im2col weight gradients (G's 11 layers x 15 calls, D's 12 x 4
+# chunks in the update; the G head's D is frozen). Derived on meta tensors
+# by tests/test_torch_train_paths.py.
+EXPECTED_ROUTES = {
+    "config1 r1 step": dict(plain=4),
+    "config1 bn step": dict(bare=14),
+    "config1 bn serving": dict(bare=5),
+    "config5 engines step": dict(s2d=38, subpixel=150),
+    "config5 patches step": dict(patches=213),
 }
 # Phase 13's overrides of config4 (B=64, T=10, k=16 as the preset has them):
 # EMA, D augmentation, and a scheduled-sampling schedule that mixes from the
@@ -323,10 +392,21 @@ CONFIG5_OVERRIDES = ["train.disc_microbatch=240"]
 FAULT1_OVERRIDES = ["model.image_size=512", "model.g_levels=6", "model.d_levels=7",
                     "train.batch_size=2", "train.rollout_length=2"]
 FAULT1_GROUP_PLAIN = (3, 12)  # in bfloat16 and in float32 alike
+# Phase 18's paths: config1 as phase 12 trains it (B=128, bfloat16 moments)
+# with R1 or batch norm, config5 as phase 14 trains it with the engines.
+# deconv="subpixel" and conv0="s2d" go together; wgrad="patches" excludes
+# both (the configs refuse the pairs, as the JAX package's do).
+PHASE18_OVERRIDES = {
+    "config1 r1 step": ["train.r1_weight=10"],
+    "config1 bn step": ["model.norm=batch"],
+    "config5 engines step": ["model.deconv=subpixel", "model.conv0=s2d"],
+    "config5 patches step": ["model.wgrad=patches"],
+}
 # A step path's fourth field: its kernel-4 calls that read a bfloat16 y (the
 # split layers' backward; kernel 3's launches less the remat recompute's).
 # tests/test_golden.py's tolerances on (d_loss, g_loss, g_recon): (atol, rtol).
 GOLDEN_TOL = ((2e-4, 1e-3), (2e-3, 1e-3), (2e-4, 1e-3))
+TRAJECTORY = ("d_loss", "g_loss", "g_recon")
 
 
 def say(*parts):
@@ -704,10 +784,13 @@ def check_runs(label, launches, runs):
         + ", ".join(f"{n} {'steps' if 'step' in p else 'generator calls'} of {p}"
                     for p, n in runs.items()))
     check_launches(label, launches, runs)
-    want = {route: sum(EXPECTED[p][2][i] * n for p, n in runs.items())
-            for i, route in enumerate(("fused", "split"))}
-    # No preset has a GroupNorm off kernel 3's envelope.
-    check(api.ROUTES == {**want, "group_plain": 0}, f"{label}: routes {api.ROUTES}, want {want}")
+    want = dict.fromkeys(api.ROUTES, 0)  # no preset has a GroupNorm off kernel 3's envelope
+    for p, n in runs.items():
+        want["fused"] += EXPECTED[p][2][0] * n
+        want["split"] += EXPECTED[p][2][1] * n
+        for route, per in EXPECTED_ROUTES.get(p, {}).items():
+            want[route] += per * n
+    check(api.ROUTES == want, f"{label}: routes {api.ROUTES}, want {want}")
 
 
 def check_launches(label, launches, runs):
@@ -961,28 +1044,37 @@ def phase_autograd_parity(layers, batch=4):
     return worst
 
 
-def phase_train_fixture():
-    """The JAX package's tiny four-step training run, replayed on cuda."""
+def replay_train_fixture(arrays, keys, label):
+    """A JAX package's tiny four-step run (``make_train_fixture``'s layout)
+    replayed on cuda in float32: the trajectory of ``keys`` within
+    tests/test_golden.py's tolerances (a key past its three at d_loss's).
+    Returns the largest |d|."""
     from action_conditioned_gans_tpu_torch.config import config_from_dict
     from action_conditioned_gans_tpu_torch.train import make_train_step
     from action_conditioned_gans_tpu_torch.train.state import state_from_params
 
-    with np.load(TRAIN_FIXTURE) as z:
-        arrays = {k: z[k] for k in z.files}
     cfg = config_from_dict(json.loads(str(arrays["__config__"])))
-    check(cfg.model.compute_dtype == "float32", "training fixture is not float32")
+    check(cfg.model.compute_dtype == "float32", f"{label} is not float32")
     sds = [{k[2:].replace("/", "."): torch.from_numpy(np.array(v)) for k, v in arrays.items()
             if k.startswith(p)} for p in ("g/", "d/")]
     state = state_from_params(cfg, *sds, device="cuda")
     step = make_train_step(cfg, device="cuda")
+    tols = GOLDEN_TOL + (GOLDEN_TOL[0],) * (len(keys) - len(GOLDEN_TOL))
     worst = 0.0
     for i, want in enumerate(arrays["trajectory"]):
         state, m = step(state, {k: arrays[f"batch{i}/{k}"] for k in ("frames", "actions")})
-        got = [float(m[k]) for k in ("d_loss", "g_loss", "g_recon")]
-        for a, b, (atol, rtol) in zip(got, want, GOLDEN_TOL):
-            check(abs(a - b) <= atol + rtol * abs(b),
-                  f"training fixture step {i}: {got} vs JAX {want.tolist()}")
+        got = [float(m[k]) for k in keys]
+        for a, b, (atol, rtol) in zip(got, want, tols):
+            check(abs(a - b) <= atol + rtol * abs(b), f"{label} step {i}: {got} vs JAX {want.tolist()}")
             worst = max(worst, abs(a - b))
+    return worst
+
+
+def phase_train_fixture():
+    """The JAX package's tiny four-step training run, replayed on cuda."""
+    with np.load(TRAIN_FIXTURE) as z:
+        arrays = {k: z[k] for k in z.files}
+    worst = replay_train_fixture(arrays, TRAJECTORY, "training fixture")
     say(f"training fixture (JAX tiny 4-step run) on cuda f32: max|d| of (d_loss, g_loss, g_recon)="
         f"{worst:.3e} (bars of tests/test_golden.py)")
 
@@ -1039,7 +1131,8 @@ def phase_training(cfg, path, steps=20, warmup=3, n_batches=4):
 
     def record_conv(name):
         def wrapper(x, w, scale, bias, **kw):
-            conv_calls.append((name, tuple(x.shape), x.dtype, tuple(w.shape), tuple(sorted(kw.items()))))
+            conv_calls.append((name, tuple(x.shape), x.dtype, tuple(w.shape),
+                               tuple(sorted(kw.items())), bias is None))
             return real_conv[name](x, w, scale, bias, **kw)
         return wrapper
 
@@ -1102,15 +1195,17 @@ def phase_train_conv_parity(conv_calls, worst):
 
     distinct = list(dict.fromkeys(conv_calls))
     with torch.inference_mode():
-        for i, (name, x_shape, dtype, w_shape, kw) in enumerate(distinct):
+        for i, (name, x_shape, dtype, w_shape, kw, no_bias) in enumerate(distinct):
             kw = dict(kw)
             x, w, s, b = call_inputs(x_shape, w_shape, kw["kind"], dtype, seed=600 + i)
+            b = None if no_bias else b  # a split batch-norm layer's bare conv
             got = getattr(conv, name)(x, w, s, b, **kw)
+            kw.pop("wgrad", None)  # the backward's engine; the plain forward takes none
             want = getattr(conv, f"{name}_plain")(x.float(), w.to(dtype).float(), s, b, **kw)
             torch.cuda.synchronize()
             err = float((got.float() - want).abs().max())
-            say(f"train parity {name:24s} x{x_shape} w{w_shape} {kw['kind']:5s} {str(dtype)[6:]} "
-                f"max|d|={err:.3e}")
+            say(f"train parity {name:24s} x{x_shape} w{w_shape} {kw['kind']:5s} "
+                f"{'bare ' if no_bias else ''}{str(dtype)[6:]} max|d|={err:.3e}")
             check(np.isfinite(err) and err <= 3e-2,
                   f"{name} at the training step's x{x_shape}: kernel vs plain beyond 3e-2 ({err})")
             worst[name]["max_abs_err"] = max(worst[name]["max_abs_err"], err)
@@ -1387,7 +1482,7 @@ def phase_split_autograd(batch=4):
 
         api.reset_routes()
         out_k, got = grads(lambda *a: api.conv_norm_act(*a, stride=2, **kw))
-        check(api.ROUTES == {"fused": 0, "split": 1, "group_plain": 0},
+        check(api.ROUTES == {**dict.fromkeys(api.ROUTES, 0), "split": 1},
               f"{label}: not on the split route")
         check(out_k.grad_fn.name() == "GroupNormActFnBackward", f"{label}: not through GroupNormActFn")
         _, want = grads(lambda xx, ww, ss, bb: reference.norm_act(
@@ -2128,7 +2223,7 @@ def check_traced_routes(label, path, calls):
     from action_conditioned_gans_tpu_torch.ops import api
 
     fused, split = EXPECTED[path][2]
-    want = {"fused": fused * calls, "split": split * calls, "group_plain": 0}
+    want = {**dict.fromkeys(api.ROUTES, 0), "fused": fused * calls, "split": split * calls}
     check(api.ROUTES == want, f"{label}: the export traced routes {api.ROUTES}, want {want}")
     launched = {k: v for k, v in read_launches().items() if v}
     check(not launched, f"{label}: tracing launched {launched}")
@@ -2627,6 +2722,332 @@ def phase_file_data(smi, phase12_dir, synthetic_cadence_ms, phase12_totals):
     return launches
 
 
+# -- phase 18: R1, batch norm and the engine knobs -----------------------------------
+
+
+def phase18_config(path):
+    """Phase 18's config of ``path``: PHASE18_OVERRIDES on config1 as phase
+    12 trains it (``config1_train_config``), or on config5 as phase 14 does."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+
+    base = (config1_train_config() if path.startswith("config1")
+            else apply_overrides(get_preset("config5"), CONFIG5_OVERRIDES))
+    return apply_overrides(base, PHASE18_OVERRIDES[path])
+
+
+def phase18_loop(path, serving, tmp):
+    """``train`` with phase 12's arguments and ``path``'s overrides for 32
+    steps (counts set to 0 just before, read just after): EXPECTED[path] x 32
+    plus ``serving`` for the held-out rollout's generator call at step 32;
+    every metric line finite. Returns (launches, the training metric lines)."""
+    sets = [a for o in PHASE18_OVERRIDES[path] for a in ("--set", o)]
+    reset_launches()
+    out = run_cli(["train", *LOOP_ARGS, *sets, "--workdir", os.path.join(tmp, path.split()[1]),
+                   "--steps", "32"])
+    launches = read_launches()
+    lines = metric_lines(out)
+    check([r["step"] for r in lines] == [16, 32, 32], f"{path}: metric lines at steps "
+          f"{[r['step'] for r in lines]}")
+    check(all(np.isfinite(v) for r in lines for v in r.values()), f"{path}: a non-finite metric")
+    evals = [r for r in lines if "eval_l2" in r]
+    check_runs(path.replace("step", "train loop"), launches, {path: 32, serving: len(evals)})
+    return launches, [r for r in lines if "eval_l2" not in r]
+
+
+def fresh_copy(state, device):
+    from action_conditioned_gans_tpu_torch.train.state import state_to_device, state_to_host
+
+    return state_to_device(state_to_host(state), device)
+
+
+def first_moments_within(a, b, atol, rtol, label, which=("g_opt", "d_opt")):
+    """Check the Adam first moments (after one step, (1 - b1) times the
+    gradients) of states ``a`` and ``b``; returns the largest |d|."""
+    worst = 0.0
+    for opt in which:
+        for k, v in getattr(b, opt).mu.items():
+            err, ok = within(getattr(a, opt).mu[k].cpu(), v.cpu(), atol, rtol)
+            check(ok, f"{label}: {opt}.mu/{k} differs ({err:.3e}; its largest |entry| "
+                      f"{float(v.abs().max()):.3e})")
+            worst = max(worst, err)
+    return worst
+
+
+def phase_r1_f32():
+    """config1 widths, B=4, float32 with float32 moments, TF32 off: one R1
+    step on cuda against the same step on the CPU's plain path (d_r1 within
+    1e-4 relative, D's first moments within 1e-4 abs + 1e-3 rel); then on
+    cuda, cuDNN off, disc_microbatch=2 against 0 at the bars of
+    tests/test_train_step.py::test_r1_microbatch_equivalence (d_r1 rtol 1e-5
+    / atol 1e-7; both first moments atol 5e-6 / rtol 1e-4)."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+
+    cfg = apply_overrides(phase18_config("config1 r1 step"), [
+        "model.compute_dtype=float32", "train.adam_moment_dtype=float32", "train.batch_size=4"])
+    state0 = init_state(cfg, torch.Generator().manual_seed(24), device="cpu")
+    rng = np.random.default_rng(24)
+    batch = dict(frames=np.tanh(rng.standard_normal((4, 2, 64, 64, 3))).astype(np.float32),
+                 actions=rng.standard_normal((4, 1, 4)).astype(np.float32))
+
+    def run(device, mb=0):
+        c = apply_overrides(cfg, [f"train.disc_microbatch={mb}"])
+        return make_train_step(c, device=device)(fresh_copy(state0, device), batch)
+
+    (on_gpu, m_gpu), (on_cpu, m_cpu) = run("cuda"), run("cpu")
+    a, b = float(m_gpu["d_r1"]), float(m_cpu["d_r1"])
+    check(np.isfinite(a) and a > 0 and abs(a - b) <= 1e-4 * abs(b),
+          f"R1 f32: d_r1 on cuda {a} vs the CPU's {b}")
+    worst_cpu = first_moments_within(on_gpu, on_cpu, 1e-4, 1e-3, "R1 f32 cuda vs cpu", ("d_opt",))
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        (full, m_full), (chunked, m_chunk) = run("cuda", 0), run("cuda", 2)
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    c, f = float(m_chunk["d_r1"]), float(m_full["d_r1"])
+    check(abs(c - f) <= 1e-7 + 1e-5 * abs(f), f"R1 disc_microbatch=2: d_r1 {c} vs {f}")
+    worst_mb = first_moments_within(chunked, full, 5e-6, 1e-4, "R1 disc_microbatch=2 vs 0")
+    say(f"config1 widths f32 B=4, R1: d_r1 cuda {a:.6e} vs cpu {b:.6e} (rel {abs(a - b) / b:.2e}, "
+        f"bar 1e-4), D first moments max|d| {worst_cpu:.3e} (1e-4 + 1e-3 rel); "
+        f"disc_microbatch=2 vs 0 (cuDNN off): d_r1 |d| {abs(c - f):.3e}, first moments max|d| "
+        f"{worst_mb:.3e} (atol 5e-6, rtol 1e-4)")
+
+
+def phase_bare_conv_f32(conv_calls):
+    """Each distinct bare conv of the counted batch-norm step (kernel 1 or 2
+    with kind "none", act "none", no bias) in float32 against its plain
+    version, TF32 off: phase 2's float32 bar, 1e-3 abs + 1e-3 rel."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import conv
+
+    bare = [c for c in dict.fromkeys(conv_calls) if c[5]]
+    check(bare, "the batch-norm step made no bare conv call")
+    with torch.inference_mode():
+        for i, (name, x_shape, _, w_shape, kw, _) in enumerate(bare):
+            kw = {k: v for k, v in kw if k != "wgrad"}
+            x, w, _, _ = call_inputs(x_shape, w_shape, "none", torch.float32, seed=650 + i)
+            got = getattr(conv, name)(x, w, None, None, **kw)
+            want = getattr(conv, f"{name}_plain")(x, w, None, None, **kw)
+            torch.cuda.synchronize()
+            err, ok = within(got, want, 1e-3, 1e-3)
+            say(f"bare conv f32 {name:24s} x{x_shape} w{w_shape} max|d|={err:.3e}")
+            check(ok, f"{name} bare at x{x_shape}: float32 kernel vs plain beyond 1e-3 ({err})")
+
+
+def phase_bn_microbatch_bits():
+    """config1 with batch norm at full width (B=128, bf16): a step with
+    disc_microbatch=64 is bit-identical to one without (batch norm keeps D
+    in one chunk), cuDNN in its deterministic algorithms."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+
+    cfg = phase18_config("config1 bn step")
+    state0 = init_state(cfg, torch.Generator().manual_seed(25), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    batch = dict(frames=torch.tanh(torch.randn((128, 2, 64, 64, 3), generator=gen, device="cuda")),
+                 actions=torch.randn((128, 1, 4), generator=gen, device="cuda"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [make_train_step(apply_overrides(cfg, [f"train.disc_microbatch={mb}"]), "cuda")(
+            fresh_copy(state0, "cuda"), batch) for mb in (0, 64)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (a, ma), (b, mb) = runs
+    same = all(torch.equal(getattr(a, n)[k], getattr(b, n)[k])
+               for n in ("g_params", "d_params") for k in getattr(a, n))
+    same = same and all(float(ma[k]) == float(mb[k]) for k in ma)
+    say(f"config1 bn B=128 bf16: disc_microbatch=64 vs 0 bit-identical {same}")
+    check(same, "batch norm: disc_microbatch changed the step")
+
+
+def phase_engines_reduced():
+    """config5 widths, B=2, T=4, float32, TF32 off, cuDNN off (PyTorch's own
+    convolutions, as phase 14's microbatch comparison; in float32 every layer
+    is split, so each rewrite runs at each of its layers), D's learning rate
+    0 (so that G's gradient is taken against the same D: Adam's first step
+    moves an entry of D whose gradient sits at float32's rounding floor by up
+    to +-lr, ROADMAP Facts). The engines' step against the default step from
+    one state, for deconv=subpixel + conv0=s2d and for wgrad=patches: losses
+    within 1e-4 relative (tests/test_deconv.py's train-step bar). First
+    moments: wgrad=patches computes the same convolutions, and its moments
+    hold 1e-4 abs + 1e-3 rel everywhere. The rewrites change the forward's
+    rounding, which flips the sign of pre-activations near 0 and so moves
+    single gradient entries by more than that bar; the default engine
+    itself misses it when only cuDNN's algorithms change. So their moments
+    are held to that: at most as many entries beyond the bar, and no larger
+    a |d|, as the default step with cuDNN on against the same step off."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.ops import api
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+
+    base = apply_overrides(phase18_config("config5 engines step"), [
+        "model.deconv=xla", "model.conv0=xla", "model.compute_dtype=float32",
+        "train.batch_size=2", "train.rollout_length=4", "train.d_lr=0"])
+    state0 = init_state(base, torch.Generator().manual_seed(26), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    batch = dict(frames=torch.tanh(torch.randn((2, 5, 256, 256, 3), generator=gen, device="cuda")),
+                 actions=torch.randn((2, 4, 4), generator=gen, device="cuda"))
+
+    def run(knobs, cudnn):
+        enabled, deterministic = torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic
+        torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic = cudnn, True
+        try:
+            api.reset_routes()
+            state, m = make_train_step(apply_overrides(base, knobs), "cuda")(
+                fresh_copy(state0, "cuda"), batch)
+            return state, m, dict(api.ROUTES)
+        finally:
+            torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic = enabled, deterministic
+
+    def beyond(st, ref):
+        """(entries of both first moments beyond 1e-4 abs + 1e-3 rel, max |d|)."""
+        n, worst = 0, 0.0
+        for opt in ("g_opt", "d_opt"):
+            for k, v in getattr(ref, opt).mu.items():
+                d = (getattr(st, opt).mu[k] - v).abs()
+                n += int((d > 1e-4 + 1e-3 * v.abs()).sum())
+                worst = max(worst, float(d.max()))
+        return n, worst
+
+    ref, m_ref, _ = run([], False)
+    floor = beyond(run([], True)[0], ref)
+    say(f"config5 widths f32 B=2 T=4, d_lr 0: the default step with cuDNN on vs off: first-moment "
+        f"entries beyond 1e-4 + 1e-3 rel {floor[0]}, max|d| {floor[1]:.3e}")
+    for name, knobs in (("subpixel+s2d", PHASE18_OVERRIDES["config5 engines step"]),
+                        ("patches", PHASE18_OVERRIDES["config5 patches step"])):
+        st, m, routes = run(knobs, False)
+        rel = max(abs(float(m[k]) - float(m_ref[k])) / max(abs(float(m_ref[k])), 1e-30)
+                  for k in ("d_loss", "g_loss", "g_adv", "g_recon"))
+        check(rel <= 1e-4, f"config5 widths f32 {name}: losses {rel:.3e} relative from the default")
+        n, worst = beyond(st, ref)
+        if name == "patches":
+            check(n == 0, f"{name}: {n} first-moment entries beyond 1e-4 + 1e-3 rel ({worst:.3e})")
+        else:
+            check(n <= floor[0] and worst <= floor[1],
+                  f"{name}: first moments ({n} beyond the bar, max|d| {worst:.3e}) farther from "
+                  f"the default than cuDNN's algorithms move it ({floor[0]}, {floor[1]:.3e})")
+        ran = {k: v for k, v in routes.items() if k in ("s2d", "subpixel", "patches") and v}
+        check(len(ran) == (2 if "+" in name else 1), f"{name}: the engines did not run: {routes}")
+        say(f"config5 widths f32 B=2 T=4, {name} vs the default engines (cuDNN off): losses max "
+            f"rel |d| {rel:.3e} (bar 1e-4); first moments: {n} entries beyond 1e-4 + 1e-3 rel, "
+            f"max|d| {worst:.3e}; engine routes {ran}")
+
+
+def phase_rewrites_alone():
+    """Each rewrite alone at config5's split shapes (B=2) against the
+    default plain op on the same inputs, forward and the gradients of
+    sum(sin(y)), cuDNN off: float64 within the float32 bars of
+    tests/test_deconv.py, test_conv0.py and test_wgrad.py (2e-5; dw's atol
+    scaled by its largest magnitude), bfloat16 within 2% of each quantity's
+    largest magnitude; float32 printed as max|d| over the largest magnitude
+    (at 512-channel contractions its rounding floor lies above an absolute
+    2e-5: dec_4's dx differed by 7.7e-5). Subpixel at G dec_4..0, s2d at G
+    enc_0 and D conv_0, patches at G enc_1, D conv_0_extra_0 and G dec_1."""
+    from action_conditioned_gans_tpu_torch.ops import reference, wgrad
+
+    # (label, x shape, w shape, stride, the rewrite, the default op)
+    sub = lambda x, w: reference.conv2d_transpose_subpixel(x, w)  # noqa: E731
+    dct = lambda x, w: reference.conv2d_transpose(x, w)  # noqa: E731
+    s2d = lambda x, w: reference.conv2d_s2d(x, w, stride=2)  # noqa: E731
+    c2 = lambda x, w: reference.conv2d(x, w, stride=2)  # noqa: E731
+    c1 = lambda x, w: reference.conv2d(x, w, stride=1)  # noqa: E731
+    cases = [(f"G dec_{i} subpixel", (2, 256 >> (i + 1), 256 >> (i + 1), cin), (4, 4, cin, cout), sub, dct)
+             for i, (cin, cout) in zip(range(4, -1, -1), ((512, 512), (512, 256), (256, 128),
+                                                           (128, 64), (64, 3)))]
+    cases += [("G enc_0 s2d", (2, 256, 256, 3), (4, 4, 3, 64), s2d, c2),
+              ("D conv_0 s2d", (2, 256, 256, 10), (4, 4, 10, 64), s2d, c2),
+              ("G enc_1 patches", (2, 128, 128, 64), (4, 4, 64, 128),
+               lambda x, w: wgrad.conv2d_patches_wgrad(x, w, 2), c2),
+              ("D conv_0_extra_0 patches", (2, 128, 128, 64), (3, 3, 64, 64),
+               lambda x, w: wgrad.conv2d_patches_wgrad(x, w, 1), c1),
+              ("G dec_1 patches", (2, 64, 64, 128), (4, 4, 128, 64),
+               lambda x, w: wgrad.conv2d_transpose_patches_wgrad(x, w), dct)]
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        for i, (label, x_shape, w_shape, fn, plain) in enumerate(cases):
+            g = torch.Generator(device="cuda").manual_seed(700 + i)
+            x0 = torch.randn(x_shape, generator=g, device="cuda")
+            w0 = torch.randn(w_shape, generator=g, device="cuda") * 0.1
+            errs = []
+            for dtype in (torch.float64, torch.bfloat16, torch.float32):
+                res = []
+                for f in (fn, plain):
+                    wd = torch.float64 if dtype == torch.float64 else torch.float32
+                    x, w = x0.to(dtype).requires_grad_(), w0.to(wd).requires_grad_()
+                    y = f(x, w)
+                    dx, dw = torch.autograd.grad(torch.sin(y.to(wd)).sum(), (x, w))
+                    res.append([t.to(wd) for t in (y.detach(), dx, dw)])
+                for name, a, b in zip(("y", "dx", "dw"), *res):
+                    scale = float(b.abs().max())
+                    d = float((a - b).abs().max())
+                    if dtype == torch.float32:
+                        errs.append(f"f32 {name} {d / scale:.1e} rel")
+                        continue
+                    if dtype == torch.float64:
+                        atol = 2e-5 * max(scale, 1.0) if name == "dw" else 2e-5
+                        ok = bool(((a - b).abs() <= atol + 2e-5 * b.abs()).all())
+                    else:
+                        ok = bool(((a - b).abs() <= 0.02 * scale + 0.02 * b.abs()).all())
+                    check(ok, f"{label} {str(dtype)[6:]} {name}: {d:.3e} from the default op")
+                    errs.append(f"{str(dtype)[6:]} {name} {d:.2e}")
+            say(f"rewrite parity {label:26s} x{x_shape} w{w_shape}: " + " ".join(errs))
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+
+def phase18(smi, totals, tmp):
+    """Phase 18: R1, batch norm and the engine knobs on the card; returns
+    the launches of its counted runs by path."""
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+
+    t_phase = time.perf_counter()
+    say(f"phase 18: R1, batch norm and the engine knobs ({smi})")
+    launches = {}
+    # The JAX package's tiny R1 and batch-norm runs, replayed in float32.
+    with np.load(R1_BN_FIXTURE) as z:
+        arrays = {k: z[k] for k in z.files}
+    for name, keys in (("r1", TRAJECTORY + ("d_r1",)), ("bn", TRAJECTORY)):
+        run = {k[len(name) + 1:]: v for k, v in arrays.items() if k.startswith(name + "/")}
+        worst = replay_train_fixture(run, keys, f"{name} fixture")
+        say(f"{name} fixture (JAX tiny 4-step run) on cuda f32: max|d| of {keys}={worst:.3e} "
+            f"(bars of tests/test_golden.py)")
+
+    # (a) config1 with R1.
+    launches["config1 r1 train loop"], lines = phase18_loop("config1 r1 step", "config1 serving",
+                                                           tmp)
+    check(all(np.isfinite(r["d_r1"]) and r["d_r1"] > 0 for r in lines),
+          f"d_r1 not finite and positive on every metric line: {lines}")
+    launches["config1 r1 step"], _, _, _ = phase_training(phase18_config("config1 r1 step"),
+                                                          "config1 r1 step")
+    phase_r1_f32()
+
+    # (b) config1 with batch norm.
+    launches["config1 bn train loop"], _ = phase18_loop("config1 bn step", "config1 bn serving",
+                                                        tmp)
+    cfg = phase18_config("config1 bn step")
+    launches["config1 bn step"], _, conv_calls, _ = phase_training(cfg, "config1 bn step")
+    phase_train_conv_parity(conv_calls, totals)
+    phase_bare_conv_f32(conv_calls)
+    phase_bn_microbatch_bits()
+    predictor = Predictor(cfg, seeded_params(cfg, seed=0), device="cuda")
+    launches["config1 bn serving"] = phase_serving(predictor, "config1 bn serving", 128, 10, 16,
+                                                   timed=8)
+    del predictor
+
+    # (c) config5 with the engine knobs.
+    for path in ("config5 engines step", "config5 patches step"):
+        cfg = phase18_config(path)
+        say(f"{path}: config5 with {' '.join(CONFIG5_OVERRIDES + PHASE18_OVERRIDES[path])}")
+        launches[path], _, _, _ = phase_training(cfg, path, steps=3, warmup=2, n_batches=2)
+    phase_engines_reduced()
+    phase_rewrites_alone()
+    say(f"phase 18 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -2746,6 +3167,9 @@ def main() -> int:
         launches["config1 file loop"] = phase_file_data(smi, keep, synthetic_cadence,
                                                         phase12_totals)
         lap("phase 17")
+    with tempfile.TemporaryDirectory(prefix="phase18-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
+        launches.update(phase18(smi, totals, tmp))
+    lap("phase 18")
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 

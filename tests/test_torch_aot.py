@@ -132,7 +132,7 @@ def test_graphs_hold_the_custom_ops(artifact):
     for t in (2, 3):
         assert program_ops(path, f"rollout_T{t}.pt2") == {"conv_norm_act": 3 * t,
                                                           "conv_transpose_norm_act": 2 * t}
-    assert routes == {"fused": 5 * (1 + 2 + 3), "split": 0, "group_plain": 0}
+    assert routes == {**dict.fromkeys(routes, 0), "fused": 5 * (1 + 2 + 3)}
 
 
 def test_a_split_layer_exports_kernel_3(tmp_path):

@@ -24,10 +24,10 @@ from action_conditioned_gans_tpu_torch.ops import api, envelope
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def preset_layers(preset, dtype, batch):
+def preset_layers(preset, dtype, batch, **model_kw):
     """(name, block, x shape, output shape) of every G and D layer of
-    ``preset`` in ``dtype``, as the models call them."""
-    m = dataclasses.replace(get_preset(preset).model, compute_dtype=dtype)
+    ``preset`` in ``dtype`` (and ``model_kw``), as the models call them."""
+    m = dataclasses.replace(get_preset(preset).model, compute_dtype=dtype, **model_kw)
     with torch.device("meta"):
         models = {"G": Generator(m), "D": Discriminator(m)}
     s = m.image_size
@@ -117,7 +117,8 @@ def test_split_layers_per_preset(preset, dtype):
                                block.norm, block.groups, DTYPES[dtype]) == "split"]
     assert split == SPLIT[(preset, dtype)]
     # The dispatch counted each layer once, on the route the table gives.
-    assert api.ROUTES == {"fused": len(layers) - len(split), "split": len(split), "group_plain": 0}
+    assert api.ROUTES == {**dict.fromkeys(api.ROUTES, 0), "fused": len(layers) - len(split),
+                           "split": len(split)}
 
 
 EDGE_CONV = [

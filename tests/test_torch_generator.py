@@ -23,6 +23,7 @@ from action_conditioned_gans_tpu_torch import config as tcfg
 from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from action_conditioned_gans_tpu_torch.infer import Predictor, export_generator, rollout_scan
 from action_conditioned_gans_tpu_torch.models import Generator
+from action_conditioned_gans_tpu_torch.ops import api, envelope
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-3, rtol=1e-3)
@@ -89,18 +90,30 @@ def test_config_dtype_is_a_torch_dtype():
 @pytest.mark.parametrize(
     "knob", [dict(wgrad="patches"), dict(deconv="subpixel"), dict(conv0="s2d")],
 )
-def test_unported_engine_knobs_raise_at_use(knob, tmp_path):
-    cfg = tcfg.ModelConfig(**TINY, **knob)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Generator(cfg)
-    # An archive that only records the knob still loads, and serves the
-    # default engine's (identical) forward.
+def test_archive_engine_values_are_kept_and_serve_the_same_forward(knob, tmp_path, monkeypatch):
+    """An archive that records an engine knob loads with the knob kept, as
+    the JAX package's ``from_npz`` keeps it, and serves the default
+    engine's forward (the engines compute one function), within 1e-3 of
+    the JAX Predictor on the same archive. The routing budget is set to 0,
+    so every layer is split and the rewrites run."""
+    monkeypatch.setattr(envelope, "VMEM_BUDGET", 0)
     jm = jcfg.ModelConfig(**TINY, **knob)
     path = str(tmp_path / "g.npz")
-    jax_export(jcfg.Config(model=jm), jax_params(jm), path)
+    params = jax_params(jm)
+    jax_export(jcfg.Config(model=jm), params, path)
     p = Predictor.from_npz(path, device="cpu")
     assert p.cfg.model.image_size == 16
-    assert all(getattr(p.cfg.model, k) == v for k, v in tcfg.ENGINE_DEFAULTS.items())
+    assert all(getattr(p.cfg.model, k) == v for k, v in knob.items())
+    plain = Predictor(tcfg.Config(model=tcfg.ModelConfig(**TINY)), params, device="cpu")
+    frame, action = np.tanh(rand(5, 3, 16, 16, 3)), rand(6, 3, 4)
+    api.reset_routes()
+    got = p.predict(frame, action).numpy()
+    rewrites = {"conv0": ("s2d", 1), "deconv": ("subpixel", 2), "wgrad": ("patches", 0)}
+    route, n = rewrites[next(iter(knob))]
+    assert api.ROUTES["split"] == 5 and api.ROUTES[route] == n
+    np.testing.assert_allclose(got, plain.predict(frame, action).numpy(), atol=1e-5, rtol=1e-5)
+    want = JaxPredictor.from_npz(path).predict(frame, action)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
 # -- converter -----------------------------------------------------------------

@@ -411,7 +411,7 @@ def test_split_layer_matches_jax_pallas_api():
     ins = [t(a).requires_grad_() for a in (x, w, scale, bias)]
     api.reset_routes()
     out = api.conv_norm_act(*ins, **kw)
-    assert api.ROUTES == {"fused": 0, "split": 1, "group_plain": 0}
+    assert api.ROUTES == {**dict.fromkeys(api.ROUTES, 0), "split": 1}
     assert out.grad_fn.name() == "GroupNormActFnBackward"
     got = torch.autograd.grad(out, ins, t(ct))
     jout, vjp = jax.vjp(lambda *a: japi.conv_norm_act(*a, backend="pallas", **kw),
@@ -431,7 +431,7 @@ def test_split_layer_bf16_matches_jax_pallas_api():
     api.reset_routes()
     with torch.no_grad():
         got = api.conv_norm_act(t(x).to(torch.bfloat16), t(w), t(scale), t(bias), **kw)
-    assert api.ROUTES == {"fused": 0, "split": 1, "group_plain": 0} and got.dtype == torch.bfloat16
+    assert api.ROUTES == {**dict.fromkeys(api.ROUTES, 0), "split": 1} and got.dtype == torch.bfloat16
     want = japi.conv_norm_act(jnp.asarray(x).astype(jnp.bfloat16), *map(jnp.asarray, (w, scale, bias)),
                               backend="pallas", **kw)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),

@@ -9,19 +9,27 @@ to that route over G and D at B=2, (2, 128, 128, 128) x4 and
 (2, 256, 256, 64) x2; its generator call and its training step take the
 counts chip_smoke.FAULT1_GROUP_PLAIN holds the card to; no preset takes the
 route. On the CPU the route's values are the JAX package's composite's.
+
+Also on meta tensors: a split layer's conv runs kernel 1 or 2 bare
+(``ROUTES["bare"]``) exactly where the JAX package's Pallas ``conv2d``
+would, which with GroupNorm is never and with batch norm wherever the
+conv fits.
 """
 
 import collections
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_envelope import jax_route, preset_layers
 from test_torch_train_paths import step_calls
 
 import chip_smoke
 from action_conditioned_gans_tpu.ops import api as japi
+from action_conditioned_gans_tpu.ops import pallas as P
 from action_conditioned_gans_tpu_torch import config as tcfg
 from action_conditioned_gans_tpu_torch.cli import apply_overrides
 from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
@@ -116,6 +124,33 @@ def test_no_preset_takes_the_plain_group_route(preset, dtype):
     assert routes["group_plain"] == 0 and not plain
 
 
+@pytest.mark.parametrize("norm", ["group", "batch"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("preset", sorted(tcfg.PRESETS))
+def test_bare_convs_follow_the_reference_pallas_conv(preset, dtype, norm):
+    """A split layer's conv runs kernel 1 or 2 bare exactly where the JAX
+    package's Pallas ``conv2d`` / ``conv2d_transpose`` would
+    (``conv_*_supported(x, w, stride, "none", 1)``), counted in
+    ROUTES["bare"] on meta tensors at B=2: a batch-norm layer's conv where
+    it fits, never a GroupNorm preset's (its split layers do not fit)."""
+    api.reset_routes()
+    layers = preset_layers(preset, dtype, 2, norm=norm)
+    want = 0
+    for _, block, x_shape, out_shape in layers:
+        route, _ = jax_route(block, x_shape, out_shape, dtype)
+        x = jax.ShapeDtypeStruct(x_shape, jnp.dtype(dtype))
+        w = jax.ShapeDtypeStruct(tuple(block.kernel.shape), jnp.float32)
+        fits = (P.conv_transpose_norm_act_supported if block.transpose
+                else P.conv_norm_act_supported)
+        want += route == "split" and fits(x, w, block.stride, "none", 1)
+    assert api.ROUTES["bare"] == want
+    assert api.ROUTES["fused"] + api.ROUTES["split"] == len(layers)
+    if norm == "group":
+        assert want == 0
+    elif (preset, dtype) != ("config5", "float32"):
+        assert want > 0
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,groups", [((2, 5, 6, 16), 4), ((1, 4, 4, 24), 32)])
 def test_plain_group_route_matches_jax_norm_act(shape, groups, dtype):
@@ -134,7 +169,7 @@ def test_plain_group_route_matches_jax_norm_act(shape, groups, dtype):
         api.reset_routes()
         got = api.norm_act(torch.from_numpy(x).to(tdt), torch.from_numpy(scale),
                            torch.from_numpy(bias), **kw)
-        assert api.ROUTES == {"fused": 0, "split": 0, "group_plain": 1}
+        assert api.ROUTES == {**dict.fromkeys(api.ROUTES, 0), "group_plain": 1}
         want = japi.norm_act(jnp.asarray(x).astype(jdt), jnp.asarray(scale), jnp.asarray(bias),
                              backend="pallas", **kw)
         assert got.dtype == tdt

@@ -240,12 +240,15 @@ def jax_trajectory():
     return make_train_fixture()
 
 
-def make_train_fixture() -> dict:
-    """The JAX package's tiny training run of tests/test_golden.py: the
-    config as JSON, the converted init params ("g/..." and "d/..." Flax
-    keys), the four batches and the (d_loss, g_loss, g_recon) trajectory of
-    ``jit_train_step``."""
-    cfg = tiny_config(rollout_length=2)
+TRAJECTORY = ("d_loss", "g_loss", "g_recon")
+
+
+def make_train_fixture(cfg=None, keys=TRAJECTORY) -> dict:
+    """The JAX package's tiny training run of tests/test_golden.py (or of
+    ``cfg``): the config as JSON, the converted init params ("g/..." and
+    "d/..." Flax keys), the four batches and the trajectory of ``keys``
+    ((d_loss, g_loss, g_recon)) of ``jit_train_step``."""
+    cfg = tiny_config(rollout_length=2) if cfg is None else cfg
     state = jax_init_state(cfg, jax.random.PRNGKey(0))
     arrays = {"__config__": np.asarray(json.dumps(dataclasses.asdict(cfg)))}
     for prefix, params in (("g", state.g_params), ("d", state.d_params)):
@@ -257,13 +260,14 @@ def make_train_fixture() -> dict:
         arrays[f"batch{i}/frames"] = np.asarray(batch["frames"])
         arrays[f"batch{i}/actions"] = np.asarray(batch["actions"])
         state, m = step(state, batch, jax.random.PRNGKey(100))
-        traj.append([float(m[k]) for k in ("d_loss", "g_loss", "g_recon")])
+        traj.append([float(m[k]) for k in keys])
     arrays["trajectory"] = np.asarray(traj, np.float32)
     return arrays
 
 
-def replay(arrays):
-    """The port's trajectory over a fixture's params and batches, on the CPU."""
+def replay(arrays, keys=TRAJECTORY):
+    """The port's trajectory of ``keys`` over a fixture's params and
+    batches, on the CPU."""
     cfg = tcfg.config_from_dict(json.loads(str(arrays["__config__"])))
     sds = [{k[2:].replace("/", "."): torch.from_numpy(np.array(v)) for k, v in arrays.items()
             if k.startswith(p)} for p in ("g/", "d/")]
@@ -271,7 +275,7 @@ def replay(arrays):
     for i in range(4):
         batch = {k: arrays[f"batch{i}/{k}"] for k in ("frames", "actions")}
         state, m = step(state, batch)
-        traj.append([float(m[k]) for k in ("d_loss", "g_loss", "g_recon")])
+        traj.append([float(m[k]) for k in keys])
     return traj
 
 
@@ -307,17 +311,6 @@ def test_port_reproduces_the_committed_train_fixture():
 
 
 # -- knobs, state, rollout -------------------------------------------------------
-
-
-@pytest.mark.parametrize("knob", [dict(r1_weight=1.0), "norm_batch"],
-                         ids=lambda k: k if isinstance(k, str) else next(iter(k)))
-def test_unported_training_knobs_raise_at_step_build(knob):
-    jc = tiny_config() if knob == "norm_batch" else tiny_config(**knob)
-    cfg = port_config(jc)
-    if knob == "norm_batch":
-        cfg = cfg.replace(model=dataclasses.replace(cfg.model, norm="batch"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(cfg, device="cpu")
 
 
 def test_unknown_augment_op_raises_at_step_build():

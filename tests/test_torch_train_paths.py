@@ -6,8 +6,12 @@ the card) with every kernel wrapper recorded.
   mainloop, routes, kernel-4 calls that read a bfloat16 y) equals what the
   recorded calls give for every path the script holds to it: the config1,
   config2, config3, config4 and config5 steps at the script's sizes and
-  overrides,
-  and the generator calls of config1, config4 and config5 serving.
+  overrides, and phase 18's steps (config1 with R1 and with batch norm,
+  config5 with the engine knobs), and the generator calls of config1,
+  config1 with batch norm, config4 and config5 serving; and
+  ``chip_smoke.EXPECTED_ROUTES``, the other routes each path takes (bare
+  convs, the plain route of R1's inner D call, the engines' rewrites and
+  im2col weight gradients).
 * Kernel 1's tile plan, kernel 3's plan and kernel 4's plan are pinned at
   every distinct call of the config4 step (B=64, T=10: G at 64, D at 640 and
   1280) and the config5 step (B=32, T=30, time chunks of 2, D in chunks of
@@ -93,8 +97,9 @@ def step_calls(cfg):
 
 
 def generator_calls(preset, batch):
-    """One generator call of ``preset`` at ``batch`` on meta tensors."""
-    m = tcfg.get_preset(preset).model
+    """One generator call of ``preset`` (a name or a ModelConfig) at
+    ``batch`` on meta tensors."""
+    m = tcfg.get_preset(preset).model if isinstance(preset, str) else preset
     with META:
         gen = Generator(m)
         s = m.image_size
@@ -136,6 +141,7 @@ STEP_PATHS = {
     "config3 step": lambda: tcfg.get_preset("config3"),
     "config4 step": lambda: smoke_config("config4", chip_smoke.CONFIG4_OVERRIDES),
     "config5 step": lambda: smoke_config("config5", chip_smoke.CONFIG5_OVERRIDES),
+    **{path: (lambda path=path: chip_smoke.phase18_config(path)) for path in chip_smoke.PHASE18_OVERRIDES},
 }
 
 
@@ -144,20 +150,45 @@ def steps():
     return {path: step_calls(make()) for path, make in STEP_PATHS.items()}
 
 
+def other_routes(routes):
+    """The routes beside (fused, split), as EXPECTED_ROUTES gives them."""
+    return {k: v for k, v in routes.items() if k not in ("fused", "split") and v}
+
+
 @pytest.mark.parametrize("path", sorted(STEP_PATHS))
 def test_expected_step_counts_follow_the_routes(steps, path):
     want = chip_smoke.EXPECTED[path]
     got = counts(*steps[path])
     assert got[0] == want[0] and got[2] == want[2] and got[3] == want[3], got
     assert got[1] == {k: v for k, v in want[1].items() if sum(v.values())}, got[1]
+    assert other_routes(steps[path][1]) == chip_smoke.EXPECTED_ROUTES.get(path, {})
 
 
-@pytest.mark.parametrize("preset", ["config1", "config4", "config5"])
+@pytest.mark.parametrize("preset", ["config1", "config1 bn", "config4", "config5"])
 def test_expected_serving_counts_follow_the_routes(preset):
-    got = counts(*generator_calls(preset, 8))
-    want = chip_smoke.EXPECTED[f"{preset} serving"]
+    path = f"{preset} serving"
+    m = (chip_smoke.phase18_config("config1 bn step").model if preset == "config1 bn"
+         else tcfg.get_preset(preset).model)
+    calls, routes = generator_calls(m, 8)
+    got = counts(calls, routes)
+    want = chip_smoke.EXPECTED[path]
     assert got[0] == want[0] and got[2] == want[2], got
     assert got[1] == {k: v for k, v in want[1].items() if sum(v.values())}, got[1]
+    assert other_routes(routes) == chip_smoke.EXPECTED_ROUTES.get(path, {})
+
+
+def test_phase18_paths_keep_the_widths_and_set_their_knobs():
+    """Phase 18 changes knobs, never a width, the batch or T: config1 as
+    phase 12 trains it, config5 as phase 14 does."""
+    c1, c5 = chip_smoke.config1_train_config(), STEP_PATHS["config5 step"]()
+    for path in chip_smoke.PHASE18_OVERRIDES:
+        cfg, base = chip_smoke.phase18_config(path), c1 if "config1" in path else c5
+        knobs = {"r1": cfg.train.r1_weight > 0, "bn": cfg.model.norm == "batch",
+                 "engines": (cfg.model.deconv, cfg.model.conv0) == ("subpixel", "s2d"),
+                 "patches": cfg.model.wgrad == "patches"}
+        assert knobs[path.split()[1]] and sum(knobs.values()) == 1, path
+        assert (cfg.train.batch_size, cfg.train.rollout_length, cfg.model.image_size) == (
+            base.train.batch_size, base.train.rollout_length, base.model.image_size)
 
 
 def test_the_smoke_configs_keep_the_presets_widths():
