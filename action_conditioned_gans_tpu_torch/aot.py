@@ -27,7 +27,10 @@ one ``rollout_T{t}.pt2`` per horizon, each a ``torch.export.save``d program.
     clip = p.rollout(frame0, actions)                 # T must be an exported horizon
 
 Inputs are float32; outputs are in the model's compute dtype, as the live
-``infer.Predictor``'s are.
+``infer.Predictor``'s are. ``AotPredictor(path, mesh=devices)`` serves
+data-parallel as the live predictor does: the programs loaded once per
+distinct device, the batch split by ``infer.shard_batches``, the outputs
+gathered on the first device.
 """
 
 from __future__ import annotations
@@ -37,13 +40,18 @@ import io
 import json
 import os
 import zipfile
-from typing import Mapping, Sequence, Union
+from typing import Mapping, Optional, Sequence, Union
 
 import torch
 import torch.export.passes
 
 from action_conditioned_gans_tpu_torch.config import Config, ModelConfig, resolve_device
-from action_conditioned_gans_tpu_torch.infer import model_inputs, rollout_scan
+from action_conditioned_gans_tpu_torch.infer import (
+    mesh_devices,
+    model_inputs,
+    rollout_scan,
+    run_sharded,
+)
 from action_conditioned_gans_tpu_torch.ops.kernels import library  # noqa: F401 (registers acgan::)
 
 FORMAT_VERSION = 1
@@ -129,12 +137,15 @@ class AotPredictor:
     """Serve an :func:`export_aot` artifact without the model code.
 
     ``predict`` / ``rollout`` take the live ``infer.Predictor``'s arguments
-    and give its outputs; any batch size works. The programs run on
-    ``device`` (cuda unless another is given), wherever they were exported.
+    and give its outputs; any batch size works (with ``mesh``, any multiple
+    of its length). The programs run on ``device`` (cuda unless another is
+    given), or on each device of ``mesh``, wherever they were exported.
     """
 
-    def __init__(self, path: str, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, path: str, device=None, mesh: Optional[Sequence] = None):
+        self.mesh = mesh_devices(mesh, device)
+        self.device = self.mesh[0] if self.mesh else resolve_device(device)
+        devices = list(dict.fromkeys(self.mesh or [self.device]))
         with zipfile.ZipFile(path) as z:
             self.meta = json.loads(z.read(_META).decode())
             if self.meta.get("format_version") != FORMAT_VERSION:
@@ -142,16 +153,28 @@ class AotPredictor:
                     f"unsupported artifact format {self.meta.get('format_version')!r} "
                     f"(this loader speaks {FORMAT_VERSION})"
                 )
-            self._predict = self._load(z.read(_PREDICT))
-            self._rollouts = {int(t): self._load(z.read(_ROLLOUT_T.format(t=t)))
+
+            def load(name):
+                """The program ``name`` on each device."""
+                data = z.read(name)
+                return {dev: torch.export.passes.move_to_device_pass(
+                    torch.export.load(io.BytesIO(data)), dev).module() for dev in devices}
+
+            self._predict = load(_PREDICT)
+            self._rollouts = {int(t): load(_ROLLOUT_T.format(t=t))
                               for t in self.meta["rollout_lengths"]}
         self.cfg = Config(model=ModelConfig(**self.meta["model_config"]))
         self.state_dim = int(self.meta["state_dim"])
         self.rollout_lengths = sorted(self._rollouts)
 
-    def _load(self, data: bytes):
-        program = torch.export.load(io.BytesIO(data))
-        return torch.export.passes.move_to_device_pass(program, self.device).module()
+    def _run(self, programs, args: dict) -> torch.Tensor:
+        """The program on this predictor's device, or on each mesh device's
+        share of the batch."""
+        if self.mesh is None:
+            return programs[self.device](**args)
+        names = list(args)
+        return run_sharded(lambda program, *a: program(**dict(zip(names, a))), programs,
+                           self.mesh, tuple(args.values()))
 
     def _args(self, frame, action, state, time: bool):
         if self.state_dim and state is None:
@@ -164,7 +187,7 @@ class AotPredictor:
     def predict(self, frame, action, state=None) -> torch.Tensor:
         """One next-frame prediction, (B, H, W, C) in the compute dtype."""
         with torch.inference_mode():
-            return self._predict(**self._args(frame, action, state, time=False))
+            return self._run(self._predict, self._args(frame, action, state, time=False))
 
     def rollout(self, frame0, actions, states=None) -> torch.Tensor:
         """Autoregressive rollout, dispatched on T to an exported horizon."""
@@ -180,4 +203,5 @@ class AotPredictor:
                 f"states horizon T={states.shape[1]} does not match the actions horizon T={t_len}"
             )
         with torch.inference_mode():
-            return self._rollouts[t_len](**self._args(frame0, actions, states, time=True))
+            return self._run(self._rollouts[t_len], self._args(frame0, actions, states,
+                                                               time=True))

@@ -15,13 +15,26 @@ port's or the JAX package's ``export``), an AOT artifact, or
 builds, data and checkpoints (exit 1 if one fails); ``profile-report``
 summarises a ``train --profile-steps`` trace. Each runs on the GPU, or on
 the CPU with ``--device cpu``.
+
+``--multihost`` makes the process one rank of a data-parallel run started
+by ``torchrun`` (one process per device):
+
+    torchrun --nproc-per-node N -m action_conditioned_gans_tpu_torch --multihost train ...
+
+It initialises the process group from torchrun's environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``): NCCL on
+``cuda:LOCAL_RANK`` (or ``--device``), gloo with ``--device cpu``; the group
+is destroyed on exit. ``train`` and ``bench`` then run data-parallel.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import datetime
 import json
+import os
 import sys
 from typing import List
 
@@ -110,7 +123,45 @@ def build_parser() -> argparse.ArgumentParser:
                    help="doctor: seconds before the device probe is declared hung")
     p.add_argument("--host", default="127.0.0.1", help="serve: bind address")
     p.add_argument("--port", type=int, default=8700, help="serve: TCP port (0 = any free)")
+    p.add_argument("--multihost", action="store_true",
+                   help="one rank of a data-parallel run under torchrun: the process group "
+                   "from RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT (NCCL on "
+                   "cuda:LOCAL_RANK, gloo with --device cpu)")
     return p
+
+
+@contextlib.contextmanager
+def process_group(args):
+    """With ``--multihost``, this process as one rank of torchrun's group on
+    its device (``args.device`` is set to it), destroyed on exit; without it,
+    nothing. A CUDA rank on a machine without CUDA raises: no CPU fallback."""
+    if not args.multihost:
+        yield
+        return
+    import torch
+    import torch.distributed as dist
+
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+               if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"--multihost needs torchrun's environment; {missing} unset "
+                           "(torchrun --nproc-per-node N -m action_conditioned_gans_tpu_torch "
+                           "--multihost ...)")
+    dev = torch.device(args.device or f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--multihost on {dev}: no CUDA device is available; pass "
+                               "--device cpu for a gloo group on the CPU")
+        torch.cuda.set_device(dev)
+    args.device = str(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=datetime.timedelta(minutes=30))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> int:
@@ -133,6 +184,11 @@ def main(argv=None) -> int:
     if args.workdir:
         cfg = dataclasses.replace(cfg, workdir=args.workdir)
     cfg = apply_overrides(cfg, args.overrides)
+    with process_group(args):
+        return _run(parser, args, cfg)
+
+
+def _run(parser, args, cfg: Config) -> int:
     if args.command == "train":
         from action_conditioned_gans_tpu_torch.train.loop import train
 
@@ -142,7 +198,9 @@ def main(argv=None) -> int:
     if args.command == "bench":
         from action_conditioned_gans_tpu_torch.bench import run_bench
 
-        print(json.dumps(run_bench(cfg, steps=args.steps or 30, device=args.device)), flush=True)
+        line = run_bench(cfg, steps=args.steps or 30, device=args.device)
+        if not args.multihost or int(os.environ["RANK"]) == 0:
+            print(json.dumps(line), flush=True)
         return 0
     if args.command == "make-data":
         return _make_data(args, cfg)

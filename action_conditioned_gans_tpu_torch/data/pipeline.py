@@ -235,8 +235,12 @@ def make_dataset(cfg: Config, stack: int = 1, start_call: int = 0, device=None,
     the file readers skip ``start_call * stack`` batches, so a resumed run
     reads what the uninterrupted one would have read next. A file source
     comes wrapped in a ``Prefetcher``: close it (``close()``) when done.
-    Reading a share of the files per host (``num_hosts`` > 1) waits on
-    ROADMAP Queue 1 item 6.
+
+    Host ``host_id`` of ``num_hosts`` (a rank of a data-parallel run) gets
+    its share of each step's ``train.batch_size`` clips: the synthetic
+    stream its rows of the one-host batch, bit for bit; a file source
+    reads the host's files (``native_tfrecord.shard_files``:
+    ``files[host_id::num_hosts]``), ``batch_size / num_hosts`` clips a step.
     """
     d, t, m = cfg.data, cfg.train, cfg.model
     dev = resolve_device(device)
@@ -244,12 +248,13 @@ def make_dataset(cfg: Config, stack: int = 1, start_call: int = 0, device=None,
     if d.source == "synthetic":
         return SyntheticClips(batch=t.batch_size, seq_len=seq_len, image_size=m.image_size,
                               action_dim=m.action_dim, with_state=True, seed=t.seed, stack=stack,
-                              frames_dtype=d.device_dtype, device=dev)
+                              frames_dtype=d.device_dtype, device=dev, host_id=host_id,
+                              num_hosts=num_hosts)
     if d.source not in FILE_SOURCES:
         raise ValueError(f"unknown data source {d.source!r}")
-    if num_hosts > 1:
-        raise NotImplementedError(f"num_hosts={num_hosts}: reading a share of the files per "
-                                  "host is not ported yet (ROADMAP Queue 1 item 6)")
+    if t.batch_size % num_hosts:
+        raise ValueError(f"batch_size={t.batch_size} must be divisible by "
+                         f"num_hosts={num_hosts} for file sources")
     if d.device_dtype not in _FRAME_DTYPES:
         raise ValueError(f"unsupported data.device_dtype {d.device_dtype!r}")
     if d.source == "tfrecord":
@@ -262,7 +267,7 @@ def make_dataset(cfg: Config, stack: int = 1, start_call: int = 0, device=None,
         )
 
         extra = {"decode_threads": d.decode_threads}
-    reader = Reader(data_dir=d.data_dir, batch=t.batch_size, seq_len=seq_len,
+    reader = Reader(data_dir=d.data_dir, batch=t.batch_size // num_hosts, seq_len=seq_len,
                     image_size=m.image_size, action_dim=m.action_dim,
                     state_dim=m.state_dim or 3, clip_len=d.clip_len,
                     image_key=d.tfrecord_image_key, encoding=d.tfrecord_encoding,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from action_conditioned_gans_tpu_torch.config import resolve_device
+from action_conditioned_gans_tpu_torch.parallel.mesh import shard_rows
 
 # World constants (normalised [0, 1] coordinates).
 _PUSHER_HALF = 0.06
@@ -157,11 +158,18 @@ class SyntheticClips:
     one would. ``stack`` = k makes k*B clips in one call and returns them as
     (k, B, ...) for the multi-step train step. Frames are cast to
     ``frames_dtype`` after generation.
+
+    With ``num_hosts`` > 1, host ``host_id`` gets its rows of each step's
+    batch of ``batch`` clips (``parallel.mesh.shard_rows``), bit for bit
+    those of the one-host stream: every host draws the randoms of the whole
+    batch (cheap) and renders only its own clips (a clip's render is its
+    own).
     """
 
     def __init__(self, batch: int, seq_len: int, image_size: int, action_dim: int = 4,
                  with_state: bool = True, seed: int = 0, stack: int = 1,
-                 frames_dtype: str = "float32", device=None):
+                 frames_dtype: str = "float32", device=None, host_id: int = 0,
+                 num_hosts: int = 1):
         if frames_dtype not in _FRAME_DTYPES:
             raise ValueError(f"unsupported frames_dtype {frames_dtype!r}")
         self.batch, self.seq_len, self.image_size = batch, seq_len, image_size
@@ -169,14 +177,23 @@ class SyntheticClips:
         self.stack = max(stack, 1)
         self.frames_dtype = _FRAME_DTYPES[frames_dtype]
         self.device = resolve_device(device)
+        self.rows = shard_rows(batch, host_id, num_hosts)
 
     def batch_at(self, index: int) -> Dict[str, torch.Tensor]:
         generator = torch.Generator(self.device)
         generator.manual_seed(batch_seed(self.seed, index))
-        out = generate_clips(generator, self.batch * self.stack, self.seq_len, self.image_size,
-                             self.action_dim, self.with_state)
+        randoms = draw_clip_randoms(generator, self.batch * self.stack, self.seq_len,
+                                    self.action_dim)
+        local = self.rows.stop - self.rows.start
+        if local != self.batch:
+            randoms = {k: v.reshape((self.stack, self.batch) + tuple(v.shape[1:]))[:, self.rows]
+                       .reshape((self.stack * local,) + tuple(v.shape[1:]))
+                       for k, v in randoms.items()}
+        out = render_clips(randoms, self.seq_len, self.image_size, self.action_dim)
+        if not self.with_state:
+            del out["states"]
         if self.stack > 1:
-            out = {k: v.reshape((self.stack, self.batch) + tuple(v.shape[1:]))
+            out = {k: v.reshape((self.stack, local) + tuple(v.shape[1:]))
                    for k, v in out.items()}
         out["frames"] = out["frames"].to(self.frames_dtype)
         return out

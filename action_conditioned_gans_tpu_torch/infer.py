@@ -8,16 +8,19 @@
     p = Predictor.from_checkpoint(cfg, "/path/workdir")   # what ``train`` wrote there
 
 A Predictor runs on ``cuda`` unless it is given another ``device``; with no
-CUDA device and no ``device`` it raises. Serving over a mesh is not ported
-yet (ROADMAP Queue 1 item 6).
+CUDA device and no ``device`` it raises. Given ``mesh``, a sequence of
+devices, it serves data-parallel: one replica of the generator per device,
+each batch split over them (``shard_batches``) and the outputs gathered on
+the first. Channel-parallel serving is ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +60,43 @@ def rollout_scan(
     return torch.stack(preds, dim=1)
 
 
+def shard_batches(devices: Sequence, *arrays) -> List[tuple]:
+    """Split batch-leading tensors over ``devices``: entry i holds each
+    array's i-th equal share of the batch axis on ``devices[i]`` (None
+    entries pass through). The one data-parallel serving split, shared by
+    ``Predictor`` and ``aot.AotPredictor``; raises where the device count
+    does not divide the batch."""
+    n = len(devices)
+    for a in arrays:
+        if a is not None and a.shape[0] % n:
+            raise ValueError(f"batch {a.shape[0]} is not divisible by the mesh data axis "
+                             f"({n} devices); pad or resize the batch")
+    return [tuple(None if a is None else a.chunk(n)[i].to(dev) for a in arrays)
+            for i, dev in enumerate(devices)]
+
+
+def run_sharded(call: Callable, replicas: Mapping[torch.device, Any],
+                devices: Sequence[torch.device], args: tuple) -> torch.Tensor:
+    """``call(replicas[device], *share)`` on each device's share of ``args``
+    (:func:`shard_batches`), concatenated on the first device."""
+    outs = [call(replicas[dev], *share)
+            for dev, share in zip(devices, shard_batches(devices, *args))]
+    return torch.cat([o.to(devices[0]) for o in outs])
+
+
+def mesh_devices(mesh: Optional[Sequence], device) -> Optional[List[torch.device]]:
+    """``mesh`` as a list of devices (None without one); ``device``, when
+    given, must be its first."""
+    if mesh is None:
+        return None
+    devices = [torch.device(d) for d in mesh]
+    if not devices:
+        raise ValueError("mesh holds no device")
+    if device is not None and torch.device(device) != devices[0]:
+        raise ValueError(f"device {device} is not the mesh's first device {devices[0]}")
+    return devices
+
+
 def _tensor(a, name: str, shape: tuple, device) -> torch.Tensor:
     t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
     if t.dim() != len(shape) or any(want not in (None, got) for want, got in zip(shape, t.shape)):
@@ -92,23 +132,44 @@ class Predictor:
     ``params`` is the Flax generator tree (nested, or flat ``"a/b"`` keys)
     with numpy leaves, as the JAX package's ``Predictor`` takes it, or the
     port's ``state_dict`` (``"a.b"`` keys) with CPU tensors.
+
+    ``mesh`` (a sequence of devices; or :meth:`with_mesh`) serves over
+    several devices: a replica of the generator on each distinct device,
+    the batch split over the sequence (``shard_batches``: it must divide the
+    batch) and the outputs gathered on the first device.
     """
 
-    def __init__(self, cfg: Config, params: Mapping[str, Any], device=None):
+    def __init__(self, cfg: Config, params: Mapping[str, Any], device=None,
+                 mesh: Optional[Sequence] = None):
         # models/ is imported where a model is built: aot.AotPredictor imports
         # this module and serves without the model code.
         from action_conditioned_gans_tpu_torch.models import Generator
 
-        self.cfg = cfg
-        self.device = resolve_device(device)
+        self.cfg, self.params, self.mesh = cfg, params, mesh_devices(mesh, device)
+        self.device = self.mesh[0] if self.mesh else resolve_device(device)
         gen = Generator(cfg.model)
         gen.load_state_dict(flax_to_state_dict(params))
         self.generator = gen.to(self.device).eval().requires_grad_(False)
+        self._replicas = {self.device: self.generator}
+        for dev in self.mesh or ():
+            if dev not in self._replicas:
+                self._replicas[dev] = copy.deepcopy(self.generator).to(dev)
+
+    def with_mesh(self, mesh: Sequence) -> "Predictor":
+        """A copy of this predictor serving over ``mesh`` (class docstring)."""
+        return Predictor(self.cfg, self.params, mesh=mesh)
+
+    def _call(self, fn: Callable, args: tuple) -> torch.Tensor:
+        """``fn(generator, *args)`` on this predictor's device, or on each
+        mesh device's share of the batch."""
+        if self.mesh is None:
+            return fn(self.generator, *args)
+        return run_sharded(fn, self._replicas, self.mesh, args)
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, workdir: Optional[str] = None,
                         step: Optional[int] = None, use_ema: bool = False,
-                        device=None) -> "Predictor":
+                        device=None, mesh: Optional[Sequence] = None) -> "Predictor":
         """Restore G's parameters from ``<workdir>/checkpoints/<step>/state.pt``
         (the latest step when None; ``cfg.workdir`` when no ``workdir``), as
         ``train`` writes it. ``use_ema=True`` serves the EMA weights.
@@ -119,7 +180,8 @@ class Predictor:
         on a checkpoint without EMA weights raises ValueError; any other
         failure (no such step, a key, shape or dtype) raises the first
         restore attempt's own error. Whether EMA weights exist is read from
-        the stored tree: no EMA tree is made up from the parameters."""
+        the stored tree: no EMA tree is made up from the parameters.
+        ``mesh``: as the constructor's."""
         from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
         from action_conditioned_gans_tpu_torch.train.state import state_from_params, state_tree
         from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
@@ -133,7 +195,8 @@ class Predictor:
                 cfg.train, ema_decay=0.999 if ema else 0.0))
             return state_tree(state_from_params(c, g_sd, d_sd, device=meta), cfg)
 
-        dev = resolve_device(device)
+        mesh_devices(mesh, device)  # a bad mesh raises before the restore
+        dev = resolve_device(device) if mesh is None else device
         want_ema = use_ema or cfg.train.ema_decay > 0
         mgr = CheckpointManager(os.path.join(workdir or cfg.workdir, "checkpoints"))
         try:
@@ -146,16 +209,17 @@ class Predictor:
             if use_ema:
                 raise ValueError("use_ema=True but the checkpoint has no EMA weights "
                                  "(train with train.ema_decay > 0)") from first
-        return cls(cfg, tree["g_ema"] if use_ema else tree["g_params"], device=dev)
+        return cls(cfg, tree["g_ema"] if use_ema else tree["g_params"], device=dev, mesh=mesh)
 
     @classmethod
-    def from_npz(cls, path, cfg: Optional[Config] = None, device=None) -> "Predictor":
+    def from_npz(cls, path, cfg: Optional[Config] = None, device=None,
+                 mesh: Optional[Sequence] = None) -> "Predictor":
         """Load a JAX ``export_generator`` archive (a path or a file object).
 
         The architecture comes from the archive. With ``cfg`` given, its
         runtime-only knobs (dtype, backend, engines) win over the archive's;
         with none, the archive's values are kept, engines included, as the
-        JAX package keeps them.
+        JAX package keeps them. ``mesh``: as the constructor's.
         """
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z[_META_KEY]))
@@ -170,17 +234,16 @@ class Predictor:
                 if f.name not in RUNTIME_ONLY
             }
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **arch))
-        return cls(cfg, params, device=device)
+        return cls(cfg, params, device=device, mesh=mesh)
 
     def predict(self, frame, action, state=None) -> torch.Tensor:
         """One next-frame prediction, (B, H, W, C) in the compute dtype."""
         with torch.inference_mode():
-            return self.generator(*model_inputs(self.cfg.model, self.device, frame, action, state,
-                                                time=False))
+            return self._call(lambda g, *a: g(*a), model_inputs(
+                self.cfg.model, self.device, frame, action, state, time=False))
 
     def rollout(self, frame0, actions, states=None) -> torch.Tensor:
         """Autoregressive T-step prediction, (B, T, H, W, C)."""
         with torch.inference_mode():
-            frame0, actions, states = model_inputs(self.cfg.model, self.device, frame0, actions,
-                                                   states, time=True)
-            return rollout_scan(self.generator, frame0, actions, states)
+            return self._call(rollout_scan, model_inputs(
+                self.cfg.model, self.device, frame0, actions, states, time=True))

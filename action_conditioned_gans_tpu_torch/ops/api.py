@@ -17,6 +17,12 @@ stride 2 by space-to-depth, kernel 2 computes the four subpixel phases), and
 its backward takes ``wgrad``. The route depends on shapes and dtype only, so
 it is the same on the CPU and on the card.
 
+:func:`batch_stats_group` syncs batch statistics: inside it, every
+``kind="batch"`` layer averages its moments over a process group's ranks
+(the JAX ``lax.pmean`` under an ``axis_name``), differentiably; the
+data-parallel step sets it. GroupNorm's statistics are per sample and need
+no sync.
+
 :func:`plain_route` is the route of the R1 penalty's inner D call: every
 conv block and :func:`norm_act` inside it runs the plain ops of
 ``ops/reference.py`` (with the layer's engines) on every device, which
@@ -49,6 +55,7 @@ from action_conditioned_gans_tpu_torch.ops.kernels import conv as _conv
 from action_conditioned_gans_tpu_torch.ops.kernels import norm_act as _norm_act
 
 _PLAIN = [False]  # inside plain_route()
+_BATCH_GROUP = [None]  # the process group of batch_stats_group()
 
 
 def reset_routes() -> None:
@@ -65,6 +72,21 @@ def plain_route():
         yield
     finally:
         _PLAIN[0] = outer
+
+
+@contextlib.contextmanager
+def batch_stats_group(group):
+    """Batch-norm layers called inside average their moments over ``group``
+    (nothing changes when it is None)."""
+    outer, _BATCH_GROUP[0] = _BATCH_GROUP[0], group
+    try:
+        yield
+    finally:
+        _BATCH_GROUP[0] = outer
+
+
+def _stats_group(kind: str):
+    return _BATCH_GROUP[0] if kind == "batch" else None
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -138,7 +160,8 @@ def norm_act(
     """Normalization + affine + activation. GroupNorm inside the reference's
     kernel envelope goes to the GroupNorm+activation kernel; kinds "none"
     (bias, cast, activation) and "batch" are the plain composite, which no
-    kernel computes in the reference either.
+    kernel computes in the reference either; "batch" averages its moments
+    over the ranks inside :func:`batch_stats_group`.
 
     A GroupNorm off that envelope (fewer than 32 channels, or one sample's
     float32 plane, twice, past 10 MiB) is ``reference.norm_act`` on every
@@ -152,7 +175,8 @@ def norm_act(
                                             leak=leak)
         ROUTES["group_plain"] += 1
     return reference.norm_act(
-        x, scale, bias, kind=kind, groups=groups, eps=eps, act=act, leak=leak
+        x, scale, bias, kind=kind, groups=groups, eps=eps, act=act, leak=leak,
+        group=_stats_group(kind)
     )
 
 
@@ -184,7 +208,7 @@ def conv_norm_act(
     if _PLAIN[0]:
         ROUTES["plain"] += 1
         y = _plain_conv(x, w, stride, transpose, wgrad, deconv, conv)
-        return reference.norm_act(y, scale, bias, **norm)
+        return reference.norm_act(y, scale, bias, group=_stats_group(kind), **norm)
     route = envelope.route(x.shape, w.shape, stride, transpose, kind, groups, x.dtype)
     ROUTES[route] += 1
     if route == "fused":

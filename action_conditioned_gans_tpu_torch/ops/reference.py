@@ -22,6 +22,7 @@ from action_conditioned_gans_tpu_torch.ops.common import (
     resolve_groups,
     same_pad,
 )
+from action_conditioned_gans_tpu_torch.parallel import comm
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
@@ -142,12 +143,15 @@ def norm_act(
     eps: float = 1e-5,
     act: str = "lrelu",
     leak: float = 0.2,
+    group=None,
 ) -> torch.Tensor:
     """Normalization + affine + activation over NHWC ``x``.
 
     Statistics in float32 (two-pass variance for "group"), the affine in
     float32, a cast back to ``x.dtype``, and only then the activation, in
-    the JAX composite's order.
+    the JAX composite's order. For "batch", ``group`` (a process group)
+    averages the moments over its ranks, differentiably, as the JAX
+    composite ``pmean``s them under an ``axis_name``.
     """
     dtype = x.dtype
     xf = x.float()
@@ -161,6 +165,8 @@ def norm_act(
     elif kind == "batch":
         mean = xf.mean(dim=(0, 1, 2))
         mean_sq = xf.square().mean(dim=(0, 1, 2))
+        if group is not None:
+            mean, mean_sq = comm.all_reduce_mean(torch.stack([mean, mean_sq]), group).unbind(0)
         var = torch.clamp_min(mean_sq - mean.square(), 0.0)
         y = (xf - mean) * torch.rsqrt(var + eps)
     elif kind == "none":

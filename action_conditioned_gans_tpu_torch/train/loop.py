@@ -11,8 +11,16 @@ run would have seen next: synthetic batch i is a pure function of (seed, i),
 and the loop asks for batch ``start // k``; the file readers skip the
 ``start // k`` calls' batches already consumed.
 
-The loop runs on one device, ``cuda`` unless another is given; a mesh of more
-than one device waits on ROADMAP Queue 1 item 6.
+Under an initialised ``torch.distributed`` process group the loop is one
+rank of a data-parallel run (``parallel/``): every rank builds the same
+state, restores on resume, reads its share of each batch (its rows of the
+synthetic batch, its file shard) and runs the data-parallel step on its own
+device, ``cuda`` unless another is given. Rank 0 alone prints, writes
+metrics and samples and saves checkpoints; every save is followed by a
+barrier, and the SIGTERM flag is max-reduced over the ranks before each
+save decision, so that no rank waits in a collective another skipped.
+Without a group the run is one rank. A mesh with a model axis (channel
+tensor parallelism) waits on ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -24,8 +32,11 @@ from typing import Optional
 
 import torch
 
-from action_conditioned_gans_tpu_torch.config import Config, resolve_device
+from action_conditioned_gans_tpu_torch.config import Config
 from action_conditioned_gans_tpu_torch.data import make_dataset
+from action_conditioned_gans_tpu_torch.parallel import comm
+from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
+from action_conditioned_gans_tpu_torch.parallel.mesh import make_mesh
 from action_conditioned_gans_tpu_torch.train.state import (
     TrainState,
     init_state,
@@ -34,20 +45,9 @@ from action_conditioned_gans_tpu_torch.train.state import (
     restore_state,
     state_to_host,
 )
-from action_conditioned_gans_tpu_torch.train.step import make_multi_train_step
 from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
 from action_conditioned_gans_tpu_torch.utils.metrics import MetricWriter
 from action_conditioned_gans_tpu_torch.utils.profiling import annotate
-
-
-def check_single_device(cfg: Config) -> None:
-    """Raise for a mesh of more than one device; ``data=-1`` ("all devices")
-    runs on the one device the loop is given."""
-    if cfg.mesh.data > 1 or cfg.mesh.model > 1:
-        raise NotImplementedError(
-            f"mesh data={cfg.mesh.data} model={cfg.mesh.model}: training over more than "
-            "one device is not ported yet (ROADMAP Queue 1 item 6)"
-        )
 
 
 def crossed(before: int, after: int, every: int) -> bool:
@@ -74,31 +74,44 @@ def train(
     ``workdir`` (``cfg.workdir`` when None), resuming from its latest
     checkpoint unless ``resume`` is False. ``profile_steps`` > 0 writes a
     ``torch.profiler`` chrome trace of that many steps, after a warm-up, to
-    ``<workdir>/profile``. Returns the final state."""
-    check_single_device(cfg)
-    dev = resolve_device(device)
+    ``<workdir>/profile`` (rank 0's). Returns the final state."""
+    mesh = make_mesh(cfg.mesh, device=device)
+    dev, lead = mesh.device, mesh.rank == 0
     workdir = workdir or cfg.workdir
     os.makedirs(workdir, exist_ok=True)
     t = cfg.train
     total = max_steps if max_steps is not None else t.total_steps
 
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     state = init_state(cfg, torch.Generator().manual_seed(t.seed), device=dev)
     # The step's draws come from seed + 1 and the step number: the key the
     # JAX loop passes (PRNGKey(seed + 1), folded with the step).
-    step_fn = make_multi_train_step(cfg, dev, seed=t.seed + 1)
+    step_fn = make_dp_train_step(cfg, mesh, seed=t.seed + 1)
     g_n, d_n = param_count(state)
-    print(f"[acgan] {cfg.name}: G params {g_n:,} | D params {d_n:,} | device {dev}", flush=True)
+    say(f"[acgan] {cfg.name}: G params {g_n:,} | D params {d_n:,} | device {dev} | "
+        f"mesh data={mesh.data}")
 
     ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"), keep=t.checkpoint_keep)
     start = 0
     if resume and ckpt.latest_step() is not None:
         state = restore_state(cfg, ckpt, template=state)
         start = state.step
-        print(f"[acgan] resumed from checkpoint at step {start}", flush=True)
+        say(f"[acgan] resumed from checkpoint at step {start}")
+
+    def save(step: int) -> None:
+        """Rank 0 writes ``step``; every rank then waits for the write."""
+        if lead:
+            ckpt.save(step, state_to_host(state, cfg))
+        if mesh.group is not None:
+            comm.barrier(mesh.group, dev)
 
     k = max(t.steps_per_call, 1)
-    dataset = make_dataset(cfg, stack=k, start_call=start // k, device=dev)
-    writer = MetricWriter(os.path.join(workdir, "tb"))
+    dataset = make_dataset(cfg, stack=k, start_call=start // k, device=dev, host_id=mesh.rank,
+                           num_hosts=mesh.data)
+    writer = MetricWriter(os.path.join(workdir, "tb") if lead else None, echo=lead)
 
     # SIGTERM (preemption) only sets a flag; the loop checkpoints and exits
     # after the call in flight.
@@ -148,14 +161,14 @@ def train(
     # The trace window opens and closes at call boundaries, after a warm-up of
     # three calls, clamped so that a short run still traces one call.
     profile_start = -1
-    if profile_steps > 0 and total > start:
+    if profile_steps > 0 and total > start and lead:
         last_call_top = start + ((total - start - 1) // k) * k
         warmup = 3 * k
         if start + warmup > last_call_top:
             warmup = last_call_top - start
-            print(f"[acgan] profile warmup clamped to {warmup} step(s): the run is too short "
-                  f"for the 3x{k}-step warmup; expect warm-up noise in the trace (raise "
-                  "--steps or lower train.steps_per_call for a clean window)", flush=True)
+            say(f"[acgan] profile warmup clamped to {warmup} step(s): the run is too short "
+                f"for the 3x{k}-step warmup; expect warm-up noise in the trace (raise "
+                "--steps or lower train.steps_per_call for a clean window)")
         profile_start = start + warmup
     profile_stop = -1
     profiler = None
@@ -206,21 +219,24 @@ def train(
             before, done = done, done + k
             call += 1
             if crossed(before, done, t.log_every) or before == start:
+                # The metrics are the ranks' means: every rank checks them.
                 values = {k_: float(v) for k_, v in metrics.items()}
                 if t.debug_nans and not all(math.isfinite(v) for v in values.values()):
                     raise FloatingPointError(f"non-finite metrics at step {done}: {values}")
                 writer.write(done, {**values, **lr_metrics(done)})
             writer.tick()
             if crossed(before, done, t.checkpoint_every):
-                ckpt.save(done, state_to_host(state, cfg))
-            if crossed(before, done, t.sample_every):
+                save(done)
+            if crossed(before, done, t.sample_every) and lead:
                 write_samples(done)
-            if preempted["flag"]:
-                print(f"[acgan] SIGTERM received: checkpointing at step {done} and exiting",
-                      flush=True)
+            stop = preempted["flag"]
+            if mesh.group is not None:  # every rank takes the same branch
+                stop = comm.any_rank(stop, mesh.group, dev)
+            if stop:
+                say(f"[acgan] SIGTERM received: checkpointing at step {done} and exiting")
                 # A step just saved on a checkpoint_every boundary is not saved
                 # again: the save returns False.
-                ckpt.save(done, state_to_host(state, cfg), force=True)
+                save(done)
                 break
         total = done
     finally:
@@ -234,23 +250,26 @@ def train(
             # SIGTERM, an error): flush it rather than drop it.
             stop_trace(" (flushed at loop exit)")
 
+    # Every save so far was followed by a barrier: the ranks see one disk.
     if total > start and ckpt.latest_step() != total:
-        ckpt.save(total, state_to_host(state, cfg), force=True)
+        save(total)
     ckpt.wait()
     p50 = writer.p50_latency()
     if p50:
-        fps = writer.frames_per_sec(t.batch_size * max(t.rollout_length, 1) * k)
+        # The global batch's frames, per device.
+        fps = writer.frames_per_sec(t.batch_size * max(t.rollout_length, 1) * k,
+                                    num_chips=mesh.data)
         # Ticks follow the host's calls, which return before the device is
         # done: a dispatch cadence, not a device step time.
-        print(f"[acgan] p50 dispatch cadence {p50 * 1e3:.2f} ms ({k} step(s)/call) | "
-              f"~{fps:.1f} frames/sec/chip (dispatch-cadence estimate; use `bench` for "
-              "timed windows that end in a synchronize)", flush=True)
+        say(f"[acgan] p50 dispatch cadence {p50 * 1e3:.2f} ms ({k} step(s)/call) | "
+            f"~{fps:.1f} frames/sec/chip (dispatch-cadence estimate; use `bench` for "
+            "timed windows that end in a synchronize)")
     stats = getattr(dataset, "stats", None)
     if stats and stats["batches"]:
         n, filled = stats["batches"], max(stats["filled"], 1)
         # The file source's host side, per call: the fill thread's time in
         # the reader (parse, stack, cast, pin, copy) and the loop's wait on
         # the queue.
-        print(f"[acgan] file data per call: fill {stats['fill_s'] * 1e3 / filled:.2f} ms | wait "
-              f"{stats['wait_s'] * 1e3 / n:.2f} ms | {n} calls", flush=True)
+        say(f"[acgan] file data per call: fill {stats['fill_s'] * 1e3 / filled:.2f} ms | wait "
+            f"{stats['wait_s'] * 1e3 / n:.2f} ms | {n} calls")
     return state

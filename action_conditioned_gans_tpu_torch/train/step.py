@@ -34,6 +34,13 @@ The step's randomness (the rollout mask, the augmentation parameters) is a
 pure function of (seed, step): :func:`draw_step_randoms`. A resumed run
 draws what the uninterrupted one drew, without a host sync.
 
+Under a process group (``parallel/dp.py``) each rank runs the step on its
+share of the batch and folds its rank into the draws, as the JAX step folds
+``axis_index``; D's and G's gradients are averaged over the ranks before
+their Adam updates, each set in one all-reduce, the metrics too (the
+gradient norms after the average), and batch-norm layers average their
+moments over the ranks (``ops.api.batch_stats_group``).
+
 On CUDA every conv block runs its Hopper kernel forward and, for a GroupNorm
 layer, the GroupNorm+activation backward kernel (``ops/kernels``); on the CPU
 the plain versions.
@@ -46,12 +53,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from action_conditioned_gans_tpu_torch.config import Config, resolve_device
 from action_conditioned_gans_tpu_torch.data.synthetic import batch_seed
 from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
 from action_conditioned_gans_tpu_torch.ops import api
+from action_conditioned_gans_tpu_torch.parallel import comm
 from action_conditioned_gans_tpu_torch.train import augment
 from action_conditioned_gans_tpu_torch.train import losses as L
 from action_conditioned_gans_tpu_torch.train.rollout import (
@@ -87,13 +96,16 @@ class StepRandoms:
 
 
 def draw_step_randoms(cfg: Config, seed: int, step: int, b: int, horizon: int,
-                      device) -> StepRandoms:
+                      device, rank: Optional[int] = None) -> StepRandoms:
     """Step ``step``'s draws, from a fresh ``torch.Generator`` on ``device``
-    seeded from ``SeedSequence([seed, step])``, in this order: the rollout
+    seeded from ``SeedSequence([seed, step])`` (with ``spawn_key=(rank,)``
+    for a rank of a process group, rank 0 included: a trailing 0 in the
+    entropy would change nothing), in this order: the rollout
     mask (with ``scheduled_sampling``; Bernoulli of the step's
     ``scheduled_sampling_prob``), then ``u_real``, ``u_fake`` and ``u_g``
-    (with ``d_augment``). The JAX package folds the step into its key and
-    splits it in the same order; threefry itself is not reproduced."""
+    (with ``d_augment``). The JAX package folds the step, then the rank's
+    ``axis_index``, into its key and splits it in the same order; threefry
+    itself is not reproduced."""
     t = cfg.train
     ops = augment.parse_policy(t.d_augment)
     if not (t.scheduled_sampling or ops):
@@ -102,7 +114,9 @@ def draw_step_randoms(cfg: Config, seed: int, step: int, b: int, horizon: int,
     gen = None
     if device.type != "meta":  # meta tensors hold shapes only
         gen = torch.Generator(device=device)
-        gen.manual_seed(batch_seed(seed, step))
+        gen.manual_seed(batch_seed(seed, step) if rank is None else int(
+            np.random.SeedSequence([seed, step], spawn_key=(rank,))
+            .generate_state(1, np.uint64)[0]))
     out = StepRandoms()
     if t.scheduled_sampling:
         out.use_pred = draw_use_pred(gen, b, horizon, scheduled_sampling_prob(step, t), device)
@@ -123,9 +137,10 @@ def disc_chunks(n_flat: int, disc_microbatch: int, norm: str = "group") -> int:
     return n_flat // mb if mb else 1
 
 
-def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
+def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=None):
     """Build the step: ``(TrainState, batch, randoms=None) -> (TrainState,
-    metrics)``.
+    metrics)``; over ``group`` (a ``torch.distributed`` process group) a
+    rank's step of the data-parallel step (module docstring).
 
     The batch is the JAX package's clip layout, numpy arrays or tensors:
     ``frames`` (B, T+1, H, W, C) in [-1, 1], ``actions`` (B, T, A), and
@@ -188,6 +203,10 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
         return L.generator_adv_loss(fake_logits)
 
     batch_norm = m.norm == "batch"
+    rank = dist.get_rank(group) if group is not None else None
+
+    def mean_over_ranks(tensors):
+        return comm.mean_reduce_(tensors, group) if group is not None else list(tensors)
 
     def r1_penalty(d_params, real, cond, action, st):
         """E over the batch of |grad_x sum D(x)|^2 at ``real`` (float32),
@@ -199,6 +218,10 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
         return gx.float().square().sum(dim=tuple(range(1, gx.dim()))).mean()
 
     def train_step(state: TrainState, batch, randoms: Optional[StepRandoms] = None):
+        with api.batch_stats_group(group):
+            return one_step(state, batch, randoms)
+
+    def one_step(state: TrainState, batch, randoms: Optional[StepRandoms]):
         where = next(iter(state.g_params.values())).device
         if where.type != dev.type or dev.index not in (None, where.index):
             raise ValueError(f"the train state is on {where}, the step on {dev}")
@@ -211,7 +234,7 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
         b, horizon = actions.shape[:2]
         ss_prob = scheduled_sampling_prob(state.step, t)
         if randoms is None:
-            randoms = draw_step_randoms(cfg, seed, state.step, b, horizon, dev)
+            randoms = draw_step_randoms(cfg, seed, state.step, b, horizon, dev, rank)
 
         # One generator rollout, kept with its graph for G's update.
         g_leaves = leaves(state.g_params)
@@ -276,7 +299,7 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
                     torch._foreach_add_(d_grads, grads)
                 d_loss = mean_of(d_loss, loss)
                 real_acc, fake_acc = mean_of(real_acc, accs[0]), mean_of(fake_acc, accs[1])
-            d_tx.update_(state.d_params, d_grads, state.d_opt)
+            d_tx.update_(state.d_params, mean_over_ranks(d_grads), state.d_opt)
 
         # G head against the updated, frozen D: differentiate w.r.t. the
         # predictions only, chunk by chunk, then chain that cotangent through
@@ -296,8 +319,8 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
             d_preds.append(dp * (1.0 / nc) if nc > 1 else dp)
             g_loss, g_adv = mean_of(g_loss, loss), mean_of(g_adv, adv)
             g_recon = mean_of(g_recon, recon)
-        g_grads = torch.autograd.grad(flat_preds, list(g_leaves.values()),
-                                      d_preds[0] if nc == 1 else torch.cat(d_preds))
+        g_grads = mean_over_ranks(torch.autograd.grad(
+            flat_preds, list(g_leaves.values()), d_preds[0] if nc == 1 else torch.cat(d_preds)))
         g_tx.update_(state.g_params, g_grads, state.g_opt)
         if t.ema_decay > 0:
             ema_update_(state.g_ema, state.g_params, t.ema_decay)
@@ -306,12 +329,14 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
             "d_loss": d_loss, "g_loss": g_loss, "g_adv": g_adv, "g_recon": g_recon,
             "d_real_acc": real_acc, "d_fake_acc": fake_acc,
         }
-        metrics = {k: v.detach() for k, v in metrics.items()}
         if t.r1_weight > 0:  # the last disc_steps iteration's, as d_loss
-            metrics["d_r1"] = d_r1.detach()
+            metrics["d_r1"] = d_r1
+        metrics = {k: v.detach().float().reshape(()) for k, v in metrics.items()}
+        mean_over_ranks(metrics.values())
         metrics["ss_prob"] = torch.tensor(ss_prob, dtype=torch.float32, device=dev)
         if t.log_grad_norms:
-            # Pre-clip global norms; D's is the last disc_steps iteration's.
+            # Pre-clip global norms of the averaged gradients; D's is the last
+            # disc_steps iteration's.
             metrics["g_grad_norm"] = global_norm(g_grads)
             metrics["d_grad_norm"] = global_norm(d_grads)
         return dataclasses.replace(state, step=state.step + 1), metrics
@@ -319,13 +344,14 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None):
     return train_step
 
 
-def make_multi_train_step(cfg: Config, device=None, seed: Optional[int] = None):
+def make_multi_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=None):
     """k = ``cfg.train.steps_per_call`` fused steps a call, in sequence, over
     a stacked batch whose leaves have a leading (k, ...) axis; returns the
     LAST step's metrics (the JAX package's ``lax.scan`` of the step; each
     step draws from ``seed`` and its own step number). With k <= 1 this is
-    the single step over an unstacked batch."""
-    step = make_train_step(cfg, device, seed)
+    the single step over an unstacked batch. ``group``: as
+    :func:`make_train_step`."""
+    step = make_train_step(cfg, device, seed, group)
     k = cfg.train.steps_per_call
     if k <= 1:
         return step

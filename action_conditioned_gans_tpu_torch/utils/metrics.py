@@ -17,10 +17,12 @@ class MetricWriter:
     """Scalars as one JSON line a call on stdout, plus TensorBoard summaries
     under ``logdir`` when ``torch.utils.tensorboard`` (which needs the
     ``tensorboard`` package) is importable; without it :meth:`write_images`
-    does nothing."""
+    does nothing. ``echo=False`` prints nothing (a data-parallel run's ranks
+    other than 0, which only keep the cadence)."""
 
-    def __init__(self, logdir: Optional[str] = None, latency_window: int = 200):
-        self._tb = None
+    def __init__(self, logdir: Optional[str] = None, latency_window: int = 200,
+                 echo: bool = True):
+        self._tb, self._echo = None, echo
         if logdir:
             os.makedirs(logdir, exist_ok=True)
             try:
@@ -35,7 +37,8 @@ class MetricWriter:
     def write(self, step: int, metrics: Dict[str, float]) -> None:
         record = {"step": int(step)}
         record.update({k: float(v) for k, v in metrics.items()})
-        print(json.dumps(record), flush=True)
+        if self._echo:
+            print(json.dumps(record), flush=True)
         if self._tb is not None:
             for k, v in record.items():
                 if k != "step":

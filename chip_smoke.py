@@ -237,10 +237,34 @@ Phases, each of which fails the run (non-zero exit, no final line):
     ``phase_engines_reduced``); each rewrite alone at config5's split shapes
     against the plain op (``phase_rewrites_alone``). (d) The phase's wall
     seconds.
+19. Data parallelism (``parallel/``). (a) An NCCL group of one rank in this
+    process: config1's step (B=128) through ``make_dp_train_step`` against
+    the step without a group, 3 steps bit for bit under
+    cudnn.deterministic, then both timed in turns (the all-reduces' cost);
+    ``train`` over the group (phase 12's arguments, 32 steps, counted)
+    against ``train`` without one, the step-32 checkpoints bit for bit.
+    (b, c) Two gloo ranks, processes of this script (``--dp-rank``) sharing
+    cuda:0: PHASE19_PATHS (config1 B=128 and config3 B=32 in bfloat16 and
+    float32, config1 with batch norm in float32), 3 steps on each rank's
+    half of the batch against the one-rank step on the whole batch here:
+    bfloat16 losses within 3e-2 relative; float32 (cuDNN off, D's lr 0)
+    G's and D's averaged gradients within 1e-4 normwise and the losses
+    within 2e-4 relative, or twice the one-rank step's own spread over
+    reordered clips where larger (batch norm's), the parameter entries
+    beyond 5e-5 counted; the ranks' parameters bit for bit equal; each
+    rank's first step counted against EXPECTED[path]. (d)
+    ``train`` on two gloo ranks over two clip files (one a rank), 32 steps,
+    and 16 resumed to 32: rank 0 alone prints, each rank's launches
+    counted, the resumed step-32 checkpoint bit for bit the uninterrupted
+    one's. (e) ``Predictor.with_mesh`` and ``AotPredictor(mesh=)`` over
+    [cuda:0, cuda:0]: config1 bf16 predict B=128 and rollout T=10 B=16 bit
+    for bit against one device (launches counted), config5 float32 within
+    1e-3. Its times are correctness runs (two processes share one card).
 
 Then a ``kernels`` JSON line (per kernel: launches summed over every main
 path, the config2, config4 and config5 steps, the config1 file, config2 and
-config4 loops, the AOT programs and phase 18's paths included; max |err|, kernel, plain, bound and library
+config4 loops, the AOT programs, phase 18's paths and phase 19's ranks included; max |err|,
+kernel, plain, bound and library
 times; kernel 4's over the config1 step's calls, and its config3 step's sums
 beside them), then the final line ``{"ok": true, "device": {...}}``.
 """
@@ -361,6 +385,23 @@ EXPECTED = {
     "config5 patches step": (dict(conv_norm_act=92, conv_transpose_norm_act=0, group_norm_act=266,
                                   gn_act_bwd=223),
                              dict(conv_norm_act=dict(wgmma=92)), (92, 334), 161),
+    # Phase 19: one rank's step of two, on half the batch, in float32 (kernels 1-2
+    # on their FMA mainloop; the float32 envelope splits config1 D conv_3, and
+    # config3 G enc_3 / bottleneck / dec_3 and D conv_3 / conv_3_extra_0 / conv_4
+    # / conv_4_extra_0; with batch norm 11 of the 14 split convs run bare). The
+    # bfloat16 ranks' steps are "config1 step" / "config3 step" as they are.
+    "config1 f32 step": (dict(conv_norm_act=10, conv_transpose_norm_act=3, group_norm_act=2,
+                              gn_act_bwd=11),
+                         dict(conv_norm_act=dict(fma=10), conv_transpose_norm_act=dict(fma=3)),
+                         (13, 2), 0),
+    "config3 f32 step": (dict(conv_norm_act=15, conv_transpose_norm_act=3, group_norm_act=11,
+                              gn_act_bwd=25),
+                         dict(conv_norm_act=dict(fma=15), conv_transpose_norm_act=dict(fma=3)),
+                         (18, 11), 0),
+    "config1 bn f32 step": (dict(conv_norm_act=13, conv_transpose_norm_act=3, group_norm_act=0,
+                                 gn_act_bwd=0),
+                            dict(conv_norm_act=dict(fma=13), conv_transpose_norm_act=dict(fma=3)),
+                            (5, 14), 0),
 }
 # The routes beside (fused, split) per generator call or step, 0 where not
 # given (ops/api.py): "bare" split convs on kernel 1 or 2, "plain" conv
@@ -375,6 +416,7 @@ EXPECTED_ROUTES = {
     "config1 bn serving": dict(bare=5),
     "config5 engines step": dict(s2d=38, subpixel=150),
     "config5 patches step": dict(patches=213),
+    "config1 bn f32 step": dict(bare=11),
 }
 # Phase 13's overrides of config4 (B=64, T=10, k=16 as the preset has them):
 # EMA, D augmentation, and a scheduled-sampling schedule that mixes from the
@@ -775,12 +817,15 @@ def check_counts(path, launches, times):
     check_runs(path, launches, {path: times})
 
 
-def check_runs(label, launches, runs):
+def check_runs(label, launches, runs, routes=None):
     """The launch and route counts of a run made of ``runs`` ({EXPECTED path:
-    generator calls or training steps}) against the sum of EXPECTED over it."""
+    generator calls or training steps}) against the sum of EXPECTED over it;
+    ``routes`` are this process's ``ops.api.ROUTES`` unless given (a rank's,
+    read in its own process)."""
     from action_conditioned_gans_tpu_torch.ops import api
 
-    say(f"main path {label}: launches {launches}, routes {api.ROUTES} over "
+    routes = dict(api.ROUTES) if routes is None else routes
+    say(f"main path {label}: launches {launches}, routes {routes} over "
         + ", ".join(f"{n} {'steps' if 'step' in p else 'generator calls'} of {p}"
                     for p, n in runs.items()))
     check_launches(label, launches, runs)
@@ -790,7 +835,7 @@ def check_runs(label, launches, runs):
         want["split"] += EXPECTED[p][2][1] * n
         for route, per in EXPECTED_ROUTES.get(p, {}).items():
             want[route] += per * n
-    check(api.ROUTES == want, f"{label}: routes {api.ROUTES}, want {want}")
+    check(routes == want, f"{label}: routes {routes}, want {want}")
 
 
 def check_launches(label, launches, runs):
@@ -3048,6 +3093,539 @@ def phase18(smi, totals, tmp):
     return launches
 
 
+# -- phase 19: data parallelism ------------------------------------------------------
+
+
+# Phase 19 (b, c): what each of two gloo ranks sharing cuda:0 trains: (preset, overrides)
+# at the global batch, of which each rank takes half (parallel.mesh.batch_slice). The
+# float32 paths keep float32 Adam moments, TF32 and cuDNN off (phase19_gloo_steps), and
+# D's learning rate 0 (as phase 18 holds the engines): G's gradient then meets one D on
+# both sides, and the averaged gradients are compared as they are, not through an Adam
+# step of D that amplifies their rounding (ROADMAP Facts).
+PHASE19_WORLD = 2
+PHASE19_STEPS = 3
+PHASE19_F32 = ["model.compute_dtype=float32", "train.adam_moment_dtype=float32",
+               "train.d_lr=0.0"]
+PHASE19_PATHS = {
+    "config1 step": ("config1", []),
+    "config3 step": ("config3", []),
+    "config1 f32 step": ("config1", PHASE19_F32),
+    "config3 f32 step": ("config3", PHASE19_F32),
+    "config1 bn f32 step": ("config1", ["model.norm=batch", *PHASE19_F32]),
+}
+# Phase 19 (d): clip files per rank file (two files, one a rank) for `train` on two ranks.
+PHASE19_FILE_CLIPS = 128
+
+
+def phase19_config(path, world=1):
+    """Phase 19's config of ``path``: config1 as phase 10 trains it (B=128,
+    bfloat16 moments) or the config3 preset (B=32), with the path's
+    overrides, one step a call; the batch is each of ``world`` ranks'
+    share."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+
+    preset, overrides = PHASE19_PATHS[path]
+    cfg = config1_train_config() if preset == "config1" else get_preset(preset)
+    cfg = apply_overrides(cfg, overrides)
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, batch_size=cfg.train.batch_size // world, steps_per_call=1))
+
+
+def phase19_batches(cfg, n, seed=19):
+    """``n`` global batches of ``cfg``'s shapes, drawn on the host from a seed
+    (every rank and the one-rank reference draw the same ones)."""
+    m, b, horizon = cfg.model, cfg.train.batch_size, max(cfg.train.rollout_length, 1)
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        batch = {"frames": torch.tanh(torch.randn((b, horizon + 1, m.image_size, m.image_size, 3),
+                                                  generator=gen)),
+                 "actions": torch.randn((b, horizon, m.action_dim), generator=gen)}
+        if m.state_dim:
+            batch["states"] = torch.randn((b, horizon, m.state_dim), generator=gen)
+        out.append(batch)
+    return out
+
+
+def first_moments(state):
+    """Adam's first moments of G and D on the host, float32: after the first
+    step, (1 - b1) times the step's gradients."""
+    return {f"{t}/{k}": v.float().cpu() for t in ("g_opt", "d_opt")
+            for k, v in getattr(state, t).mu.items()}
+
+
+def losses_of(metrics):
+    return {k: float(metrics[k]) for k in ("d_loss", "g_loss", "g_adv", "g_recon")}
+
+
+def dp_rank_steps(job, rank):
+    """A rank's share of phase 19 (b, c): each path's DP step on this rank's
+    rows of the global batches, the first step counted, the others timed;
+    writes the metrics, launches, routes and times as JSON and the final
+    parameters with torch.save."""
+    from action_conditioned_gans_tpu_torch.ops import api
+    from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
+    from action_conditioned_gans_tpu_torch.parallel.mesh import batch_slice, make_mesh
+    from action_conditioned_gans_tpu_torch.train import init_state
+
+    results = {}
+    for path in job["paths"]:
+        cfg = phase19_config(path)
+        # The float32 paths without cuDNN, as their one-rank reference runs.
+        torch.backends.cudnn.enabled = "f32" not in path
+        mesh = make_mesh(cfg.mesh, device="cuda")
+        step = make_dp_train_step(cfg, mesh)
+        state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+        out = dict(metrics=[], step_ms=[])
+        for i, batch in enumerate(phase19_batches(cfg, PHASE19_STEPS)):
+            local = batch_slice({k: v.cuda() for k, v in batch.items()}, mesh)
+            torch.cuda.synchronize()
+            if i == 0:
+                reset_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, local)
+            end.record()
+            torch.cuda.synchronize()
+            if i == 0:
+                out["launches"], out["routes"] = read_launches(), dict(api.ROUTES)
+                first_mu = first_moments(state)
+            else:
+                out["step_ms"].append(start.elapsed_time(end))
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+        torch.save({"g_params": {k: v.cpu() for k, v in state.g_params.items()},
+                    "d_params": {k: v.cpu() for k, v in state.d_params.items()},
+                    "first_mu": first_mu},
+                   os.path.join(job["dir"], f"{path.replace(' ', '_')}.rank{rank}.pt"))
+        results[path] = out
+        del state, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.enabled = True
+    return results
+
+
+def dp_rank_train(job, rank):
+    """A rank's share of phase 19 (d): ``train`` runs on clip files in turn
+    (cudnn.deterministic), each with the counts set to 0 just before it and
+    read just after, its standard output kept."""
+    from action_conditioned_gans_tpu_torch.ops import api
+
+    torch.backends.cudnn.deterministic = True
+    results = []
+    for argv in job["runs"]:
+        reset_launches()
+        out = run_cli(["train", *argv, "--device", "cuda:0"])
+        torch.cuda.synchronize()
+        results.append(dict(launches=read_launches(), routes=dict(api.ROUTES), stdout=out))
+    return results
+
+
+def dp_rank_main(argv):
+    """``chip_smoke.py --dp-rank RANK WORLD INIT_FILE JOB.json``: one rank of a
+    gloo group on cuda:0 (phase 19's two-rank runs); writes
+    ``JOB.json.rank<RANK>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: a --dp-rank process needs a GPU", file=sys.stderr)
+        return 1
+    rank, world, init, path = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(path) as f:
+        job = json.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        t0 = time.perf_counter()
+        results = {"steps": dp_rank_steps, "train": dp_rank_train}[job["mode"]](job, rank)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{path}.rank{rank}.json", "w") as f:
+        json.dump({"results": results, "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+def run_dp_ranks(job, tmp, label, world=PHASE19_WORLD, timeout=900):
+    """``job`` on ``world`` rank processes of this script on cuda:0 (a gloo
+    group, ``file://`` init under ``tmp``), joined by the deadline and killed
+    after it; returns each rank's results and seconds."""
+    path = os.path.join(tmp, f"{label}.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    init = os.path.join(tmp, f"{label}.init")
+    logs = [open(f"{path}.rank{r}.log", "w+") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               str(world), init, path], cwd=ROOT, stdout=logs[r],
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(t0 + timeout - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{label}: rank {r} exited {p.returncode}:\n{texts[r][-5000:]}")
+    out = []
+    for r in range(world):
+        with open(f"{path}.rank{r}.json") as f:
+            out.append(json.load(f))
+    say(f"{label}: {world} gloo ranks on cuda:0 took {time.perf_counter() - t0:.1f} s "
+        f"(in the ranks {[round(o['seconds'], 1) for o in out]} s)")
+    return out
+
+
+def phase19_nccl(smi, tmp):
+    """Phase 19 (a): an NCCL group of one rank in this process. config1's
+    step (B=128, bfloat16 moments) through the DP path against the step
+    without a group: 3 steps from one state, bit for bit under
+    cudnn.deterministic (config1 draws nothing); then both timed in turns
+    (no group, DP, DP, no group, five times; 20 steps a window, CUDA
+    events), and ``comm.mean_reduce_`` alone on D's and G's gradient sets
+    (the step's two parameter-size all-reduces). Then
+    `train` over the group (phase 12's arguments, 32 steps, counts set to 0
+    just before, read just after) against `train` without one: the
+    step-32 checkpoints bit for bit. Returns the counted run's launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from action_conditioned_gans_tpu_torch.parallel import comm
+    from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
+    from action_conditioned_gans_tpu_torch.parallel.mesh import make_mesh
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+    from action_conditioned_gans_tpu_torch.train.state import state_to_host
+
+    cfg = phase19_config("config1 step")
+    batches = [{k: v.cuda() for k, v in b.items()} for b in phase19_batches(cfg, 4)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    plain_dir, group_dir = os.path.join(tmp, "nccl-none"), os.path.join(tmp, "nccl-group")
+    try:
+        loop = ["train", *LOOP_ARGS, "--steps", "32", "--device", "cuda:0"]
+        run_cli([*loop, "--workdir", plain_dir])
+        states, steps = {}, {"none": make_train_step(cfg, device="cuda")}
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl.init')}",
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh(cfg.mesh, device="cuda")
+            check((mesh.world, mesh.data, dist.get_backend(mesh.group)) == (1, 1, "nccl"),
+                  f"the NCCL mesh is {mesh}")
+            steps["dp"] = make_dp_train_step(cfg, mesh)
+            for name, step in steps.items():
+                state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+                for i in range(3):
+                    state, m = step(state, batches[i])
+                states[name] = (state_to_host(state, cfg), losses_of(m))
+            times = {"none": [], "dp": []}
+            state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+            for name in ("none", "dp", "dp", "none") * 5:
+                for i in range(3):
+                    state, _ = steps[name](state, batches[i % 4])
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                torch.cuda.synchronize()
+                start.record()
+                for i in range(20):
+                    state, m = steps[name](state, batches[i % 4])
+                end.record()
+                torch.cuda.synchronize()
+                times[name].append(start.elapsed_time(end) / 20)
+            # The reduction alone: D's and G's gradient sets (the step's two
+            # all-reduces of parameter size), 50 calls each.
+            reduce_ms = {}
+            for tree in ("d_params", "g_params"):
+                grads = [v.clone() for v in getattr(state, tree).values()]
+                reduce_ms[tree] = cuda_time_ms(lambda: comm.mean_reduce_(grads, mesh.group), 50)
+            reset_launches()
+            out = run_cli([*loop, "--workdir", group_dir])
+            launches = read_launches()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = all(torch.equal(a, b) for tree in ("g_params", "d_params", "g_opt", "d_opt")
+               for a, b in zip(_leaves(states["none"][0][tree]), _leaves(states["dp"][0][tree])))
+    say(f"nccl world 1: 3 config1 steps (B=128) through the DP path against the step without a "
+        f"group, cudnn.deterministic: bit-identical {same}; losses {states['dp'][1]} / "
+        f"{states['none'][1]}")
+    check(same, "the world-1 NCCL DP step differs from the step without a group")
+    evals = [r for r in metric_lines(out) if "eval_l2" in r]
+    check_runs("config1 nccl train loop", launches,
+               {"config1 step": 32, "config1 serving": len(evals)})
+    same, max_diff, where = compare_states(final_params(group_dir, 32),
+                                           final_params(plain_dir, 32))
+    say(f"nccl world 1: `train` 32 steps over the group against `train` without one, "
+        f"cudnn.deterministic: bit-identical {same}, max |d| {max_diff:.3e} at {where}")
+    check(same, f"`train` over a world-1 NCCL group differs: {max_diff:.3e} at {where}")
+    line = dict(path="config1 step", batch=128, steps_a_window=20,
+                step_ms_no_group=times["none"], step_ms_nccl_world1=times["dp"],
+                median_ms_no_group=float(np.median(times["none"])),
+                median_ms_nccl_world1=float(np.median(times["dp"])),
+                all_reduce_ms_d_grads=reduce_ms["d_params"],
+                all_reduce_ms_g_grads=reduce_ms["g_params"], card=smi)
+    say("dp nccl " + json.dumps(line))
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def one_rank_steps(cfg, cudnn=True, order=None):
+    """``cfg``'s step without a group on the whole of phase 19's batches:
+    (the losses of each step, the first moments after the first step, the
+    final state); ``cudnn=False`` runs the convolutions without cuDNN;
+    ``order`` takes each batch's clips in that order (the same function,
+    its sums in another order)."""
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        step = make_train_step(cfg, device="cuda")
+        state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+        losses = []
+        for i, batch in enumerate(phase19_batches(cfg, PHASE19_STEPS)):
+            state, m = step(state, {k: (v if order is None else v[order]).cuda()
+                                    for k, v in batch.items()})
+            losses.append(losses_of(m))
+            if i == 0:
+                mu = first_moments(state)
+    finally:
+        torch.backends.cudnn.enabled = True
+    return losses, mu, state
+
+
+def normwise(a, b):
+    """{tensor: |a - b| / |b|, over the tensor} of two dicts of tensors."""
+    return {k: float((a[k] - v).norm() / v.norm().clamp_min(1e-30)) for k, v in b.items()}
+
+
+def phase19_gloo_steps(smi, tmp):
+    """Phase 19 (b, c): two gloo ranks on cuda:0, each PHASE19_PATHS path
+    for PHASE19_STEPS steps on its half of the batch, against the one-rank
+    step on the whole batch in this process. Both ranks end with one state,
+    bit for bit, and launch what EXPECTED[path] says a step launches.
+    bfloat16: every loss within 3e-2 relative. float32, with cuDNN off on
+    both sides (its default float32 algorithms are not deterministic:
+    config3's one-rank step differs from itself, run to run, by up to 3e-3
+    normwise in D's gradients with cuDNN on, and by nothing with it off;
+    PERF.md §6): the averaged gradients (Adam's first moments after the
+    first step) within 1e-4 of their norm, G's and D's each, and every loss
+    within 2e-4 relative (tests/test_parallel.py's bar), or within twice the
+    one-rank step's own spread where that is larger: the one-rank step on
+    the batch's clips reordered (reversed, halves swapped, shuffled), the
+    same function summed in other orders. The parameter entries more than
+    5e-5 from the one-rank step's are counted and printed, not held (Adam
+    moves an entry whose gradient sits at float32's rounding floor by up to
+    its learning rate on a summation-order difference: ROADMAP Facts).
+    Returns the ranks' counted launches by path."""
+    ranks = run_dp_ranks({"mode": "steps", "dir": tmp, "paths": list(PHASE19_PATHS)}, tmp,
+                         "dp-steps")
+    launches = {}
+    for path in PHASE19_PATHS:
+        cfg, f32 = phase19_config(path), "f32" in path
+        want, want_mu, state = one_rank_steps(cfg, cudnn=not f32)
+        name = path.replace(" ", "_")
+        saved = [torch.load(os.path.join(tmp, f"{name}.rank{r}.pt"), weights_only=True)
+                 for r in range(PHASE19_WORLD)]
+        one_state = all(torch.equal(saved[0][t][k], saved[1][t][k])
+                        for t in ("g_params", "d_params") for k in saved[0][t])
+        check(one_state, f"{path}: the two ranks hold different parameters")
+        for r, o in enumerate(ranks):
+            res = o["results"][path]
+            check_runs(f"{path} rank {r} of {PHASE19_WORLD}", res["launches"], {path: 1},
+                       routes=res["routes"])
+            launches[f"{path} rank {r}"] = res["launches"]
+        diffs = [(saved[0][t][k] - getattr(state, t)[k].cpu()).abs()
+                 for t in ("g_params", "d_params") for k in saved[0][t]]
+        got = ranks[0]["results"][path]["metrics"]
+        loss_rel = max(abs(got[i][k] - w[k]) / abs(w[k]) for i, w in enumerate(want) for k in w)
+        mine = normwise(saved[0]["first_mu"], want_mu)
+        worst = max(mine, key=mine.get)
+        # G's and D's gradients each as one vector: a tensor the loss does not
+        # depend on (a normalised layer's scale ahead of another batch norm)
+        # has a gradient of rounding noise alone, whose relative error means
+        # nothing.
+        def joined(moments, net):
+            return {net: torch.cat([moments[k].reshape(-1) for k in sorted(want_mu)
+                                    if k.startswith(net)])}
+
+        nets = {net: normwise(joined(saved[0]["first_mu"], net), joined(want_mu, net))[net]
+                for net in ("g_opt", "d_opt")}
+        if f32:
+            # The one-rank step's own spread: its clips reversed, their halves
+            # swapped, and shuffled.
+            b = cfg.train.batch_size
+            spread, loss_spread = {"g_opt": 0.0, "d_opt": 0.0}, 0.0
+            for order in (torch.arange(b - 1, -1, -1), torch.arange(b).roll(b // 2),
+                          torch.randperm(b, generator=torch.Generator().manual_seed(19))):
+                r_losses, r_mu, _ = one_rank_steps(cfg, cudnn=False, order=order)
+                for net in spread:
+                    spread[net] = max(spread[net], normwise(joined(r_mu, net),
+                                                            joined(want_mu, net))[net])
+                loss_spread = max([loss_spread] + [abs(rl[k] - w[k]) / abs(w[k])
+                                                   for rl, w in zip(r_losses, want) for k in w])
+        line = dict(path=path, world=PHASE19_WORLD, global_batch=cfg.train.batch_size,
+                    steps=PHASE19_STEPS, cudnn=not f32, ranks_bit_identical=one_state,
+                    max_rel_loss_diff_vs_one_rank=loss_rel,
+                    normwise_first_moment_diff=nets,
+                    **(dict(reordered_clips_normwise=spread, reordered_clips_loss_rel=loss_spread)
+                       if f32 else {}),
+                    max_normwise_first_moment_diff_of_a_tensor=[worst, mine[worst]],
+                    max_abs_param_diff_vs_one_rank=max(float(d.max()) for d in diffs),
+                    param_entries_beyond_5e_5=sum(int((d > 5e-5).sum()) for d in diffs),
+                    param_entries=sum(d.numel() for d in diffs),
+                    rank_step_ms=[o["results"][path]["step_ms"] for o in ranks],
+                    note="a correctness run: two processes share one card", card=smi)
+        say("dp gloo " + json.dumps(line))
+        del state
+        torch.cuda.empty_cache()
+        if f32:
+            for net, d in nets.items():
+                check(d <= max(1e-4, 2 * spread[net]), f"{path}: {net} first moments {d:.3e} "
+                      f"(normwise) from the one-rank step's; its own spread {spread[net]:.3e}")
+            check(loss_rel <= max(2e-4, 2 * loss_spread), f"{path}: losses {loss_rel:.3e} from "
+                  f"the one-rank step's; its own spread {loss_spread:.3e}")
+        else:
+            check(loss_rel <= 3e-2, f"{path}: losses {loss_rel:.3e} from the one-rank step's")
+    return launches
+
+
+def phase19_gloo_files(smi, tmp):
+    """Phase 19 (d): `train` on two gloo ranks over clip files (two files,
+    one a rank; config1 at phase 12's arguments, 64 clips a rank a step,
+    cudnn.deterministic): 32 steps uninterrupted, and 16 steps resumed to
+    32. Rank 0 alone prints and writes; each rank launches EXPECTED's
+    kernels per step (rank 0 also the held-out rollout's); the resumed
+    step-32 checkpoint equals the uninterrupted one bit for bit. Returns the
+    counted launches by run and rank."""
+    from action_conditioned_gans_tpu_torch.data import native_tfrecord as nt
+
+    nt.load_library()  # built once here, before the ranks load it
+    data_dir = os.path.join(tmp, "data")
+    for i in range(PHASE19_WORLD):
+        run_cli(["make-data", "--preset", "config1", "--num-clips", str(PHASE19_FILE_CLIPS),
+                 "--set", f"train.seed={i}", "--workdir", tmp, "--device", "cuda",
+                 "--out", os.path.join(data_dir, f"clips{i}.tfrecord")])
+    args = file_loop_args(data_dir, data_dir, "train.checkpoint_every=16")
+    whole, resumed = os.path.join(tmp, "files-whole"), os.path.join(tmp, "files-resumed")
+    runs = [[*args, "--workdir", whole, "--steps", "32"],
+            [*args, "--workdir", resumed, "--steps", "16"],
+            [*args, "--workdir", resumed, "--steps", "32"]]
+    ranks = run_dp_ranks({"mode": "train", "runs": runs}, tmp, "dp-files")
+    launches = {}
+    for i, steps in enumerate((32, 16, 16)):
+        lead = ranks[0]["results"][i]["stdout"]
+        lines = metric_lines(lead)
+        evals = sum("eval_l2" in r for r in lines)
+        for r, o in enumerate(ranks):
+            res = o["results"][i]
+            runs_of = {"config1 step": steps, **({"config1 serving": evals} if r == 0 else {})}
+            check_runs(f"config1 dp file loop run {i} rank {r}", res["launches"], runs_of,
+                       routes=res["routes"])
+            launches[f"config1 dp file loop run {i} rank {r}"] = res["launches"]
+            if r:
+                check("[acgan]" not in res["stdout"] and not metric_lines(res["stdout"]),
+                      f"rank {r} printed: {res['stdout'][-1000:]}")
+        check(lines and all(np.isfinite(v) for row in lines for v in row.values()),
+              f"run {i}: rank 0's metric lines {lines}")
+    check("resumed from checkpoint at step 16" in ranks[0]["results"][2]["stdout"],
+          "the third run did not resume")
+    same, max_diff, where = compare_states(final_params(resumed, 32), final_params(whole, 32))
+    say(f"dp file resume on 2 gloo ranks: 16 + 16 steps against 32 uninterrupted, "
+        f"cudnn.deterministic: bit-identical {same}, max |d| {max_diff:.3e} at {where}; "
+        f"checkpoints {checkpoint_steps(whole)} / {checkpoint_steps(resumed)}")
+    check(same, f"the resumed two-rank file run differs: {max_diff:.3e} at {where}")
+    check(checkpoint_steps(whole) == [16, 32], f"checkpoints {checkpoint_steps(whole)}")
+    return launches
+
+
+def phase19_serving(smi, tmp):
+    """Phase 19 (e): ``Predictor`` and ``AotPredictor`` over the mesh
+    [cuda:0, cuda:0] (the batch in halves, one replica a device): config1
+    (bfloat16, every layer fused) bit for bit against the one-device
+    predictors, predict B=128 and rollout T=10 B=16, the launches counted;
+    config5 in float32 (split layers on cuDNN) within 1e-3."""
+    from action_conditioned_gans_tpu_torch.aot import AotPredictor, export_aot
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+
+    mesh = ["cuda:0"] * PHASE19_WORLD
+    cfg = get_preset("config1")
+    params = seeded_params(cfg, seed=0)
+    one = Predictor(cfg, params, device="cuda")
+    sharded = one.with_mesh(mesh)
+    predict_args = serving_inputs(cfg, 128, 10, 16, seed=19)
+    p_args, r_args = predict_args
+    launches = {}
+    reset_launches()
+    got_p, got_r = sharded.predict(*p_args), sharded.rollout(*r_args)
+    torch.cuda.synchronize()
+    launches["config1 dp serving"] = read_launches()
+    check_runs("config1 dp serving", launches["config1 dp serving"],
+               {"config1 serving": PHASE19_WORLD * (1 + 10)})
+    same = torch.equal(got_p, one.predict(*p_args)) and torch.equal(got_r, one.rollout(*r_args))
+    path = os.path.join(tmp, "config1.aot")
+    export_aot(cfg, flax_to_state_dict(params), path, rollout_length=10, device="cuda")
+    aot_one, aot_mesh = AotPredictor(path, device="cuda"), AotPredictor(path, mesh=mesh)
+    reset_launches()
+    aot_p, aot_r = aot_mesh.predict(*p_args), aot_mesh.rollout(*r_args)
+    torch.cuda.synchronize()
+    launches["config1 dp AOT program"] = read_launches()
+    check_program_runs("config1 dp AOT program", launches["config1 dp AOT program"],
+                       {"config1 serving": PHASE19_WORLD * (1 + 10)})
+    same_aot = (torch.equal(aot_p, aot_one.predict(*p_args))
+                and torch.equal(aot_r, aot_one.rollout(*r_args)))
+    c5 = get_preset("config5")
+    c5 = c5.replace(model=dataclasses.replace(c5.model, compute_dtype="float32"))
+    p5 = Predictor(c5, seeded_params(c5, seed=5), device="cuda")
+    args5, _ = serving_inputs(c5, 4, 1, 2, seed=20)
+    e5 = float((p5.with_mesh(mesh).predict(*args5) - p5.predict(*args5)).abs().max())
+    say(f"dp serving over {mesh}: config1 bf16 predict B=128 + rollout T=10 B=16 bit-identical "
+        f"to one device: live {same}, AOT {same_aot}; config5 f32 predict B=4 max|d| {e5:.3e} "
+        f"(bar 1e-3) ({smi})")
+    check(same and same_aot, "DP serving differs from one device where every layer is fused")
+    check(e5 <= 1e-3, f"config5 f32 DP predict differs by {e5:.3e}")
+    return launches
+
+
+def phase19(smi):
+    """Phase 19: data parallelism. Returns the launches of its counted runs."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import build
+
+    t_phase = time.perf_counter()
+    say(f"phase 19: data parallelism ({smi})")
+    launches = {}
+    scratch = os.path.dirname(build.BUILD_DIR)
+    with tempfile.TemporaryDirectory(prefix="phase19-", dir=scratch) as tmp:
+        launches["config1 nccl train loop"] = phase19_nccl(smi, tmp)
+        launches.update(phase19_gloo_steps(smi, tmp))
+        launches.update(phase19_gloo_files(smi, tmp))
+        launches.update(phase19_serving(smi, tmp))
+    say(f"phase 19 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -3170,6 +3748,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="phase18-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
         launches.update(phase18(smi, totals, tmp))
     lap("phase 18")
+    launches.update(phase19(smi))
+    lap("phase 19")
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 
@@ -3195,4 +3775,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -186,8 +186,9 @@ def test_make_dataset_synthetic_branch():
 
 @pytest.mark.parametrize("source", ["tfrecord", "tfrecord_native"])
 def test_file_sources_are_refused(source, tmp_path):
-    """A file source without files, or read per host, is refused; with files
-    it is a reader behind a Prefetcher (tests/test_torch_resume_data.py)."""
+    """A file source without files, or with a batch its hosts cannot share,
+    is refused (the JAX package's errors); with files it is a reader behind
+    a Prefetcher, also per host (tests/test_torch_resume_data.py)."""
     cfg = port_config()
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, source=source))
     with pytest.raises(ValueError, match="data_dir"):
@@ -195,8 +196,28 @@ def test_file_sources_are_refused(source, tmp_path):
     empty = cfg.replace(data=dataclasses.replace(cfg.data, data_dir=str(tmp_path)))
     with pytest.raises(FileNotFoundError, match="no TFRecord files match"):
         make_dataset(empty, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_dataset(empty, device="cpu", num_hosts=2)
+    with pytest.raises(FileNotFoundError, match="no TFRecord files match"):
+        make_dataset(empty, device="cpu", host_id=1, num_hosts=2)
+    with pytest.raises(ValueError, match=f"batch_size={cfg.train.batch_size} must be divisible "
+                                         "by num_hosts=3 for file sources"):
+        make_dataset(empty, device="cpu", num_hosts=3)
+
+
+@pytest.mark.parametrize("stack", [1, 3])
+def test_synthetic_hosts_take_their_rows_of_the_one_host_batch(stack):
+    """Host r of W gets rows [r*B/W, (r+1)*B/W) of each step's batch of the
+    one-host stream, bit for bit (each renders only its clips); the JAX
+    package makes the global batch and shards it the same way."""
+    cfg = port_config(batch_size=4, rollout_length=2, seed=3)
+    one = make_dataset(cfg, stack=stack, device="cpu").batch_at(5)
+    parts = [make_dataset(cfg, stack=stack, device="cpu", host_id=r, num_hosts=2).batch_at(5)
+             for r in range(2)]
+    axis = int(stack > 1)
+    for key, whole in one.items():
+        assert parts[0][key].shape[axis] == 2
+        assert torch.equal(torch.cat([p[key] for p in parts], dim=axis), whole), key
+    with pytest.raises(ValueError, match="not divisible by the mesh data axis"):
+        make_dataset(cfg, device="cpu", num_hosts=3)
 
 
 def test_unknown_source_raises():

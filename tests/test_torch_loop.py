@@ -334,18 +334,25 @@ def test_cadence_matches_the_jax_loop(tmp_path, capsys):
 
 
 def test_unported_sources_and_meshes_are_refused(tmp_path):
+    """A file source without files is refused before a step; so is a mesh
+    with a model axis (channel tensor parallelism, ROADMAP Queue 1 item 8)
+    and a data axis that the process group does not hold (data parallelism
+    runs one process per device: tests/test_torch_multihost.py). data=-1
+    and data=1 run on the one device."""
     cfg = loop_config(tmp_path)
-    # The file sources train (tests/test_torch_file_train.py); without files
-    # they are refused before a step.
+    # The file sources train (tests/test_torch_file_train.py).
     tf = cfg.replace(data=dataclasses.replace(cfg.data, source="tfrecord_native"))
     with pytest.raises(ValueError, match="data_dir"):
         train(tf, max_steps=1, device="cpu")
-    for mesh in (dict(data=2), dict(data=1, model=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            train(cfg.replace(mesh=dataclasses.replace(cfg.mesh, **mesh)), max_steps=1,
-                  device="cpu")
-    one_card = cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=-1))
-    assert train(one_card, max_steps=1, device="cpu", workdir=str(tmp_path / "one")).step == 1
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        train(cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=1, model=2)), max_steps=1,
+              device="cpu")
+    with pytest.raises(ValueError, match="mesh data=2 needs a process group of 2 ranks"):
+        train(cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=2)), max_steps=1, device="cpu")
+    for data in (-1, 1):
+        one_card = cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=data))
+        assert train(one_card, max_steps=1, device="cpu",
+                     workdir=str(tmp_path / f"one{data}")).step == 1
 
 
 def test_train_needs_a_device_without_cuda(tmp_path):

@@ -139,10 +139,43 @@ def test_native_fast_forward_skips_without_decoding(tmp_path, monkeypatch):
 
 
 def test_file_sources_refuse_more_than_one_host(tmp_path):
+    """What more than one host cannot share is refused, as the JAX package
+    refuses it: a batch the hosts do not divide, a host without a file (a
+    repeating reader over no file would spin forever); and a frame dtype
+    the card does not take."""
     write_files(tmp_path)
     cfg = file_config(tmp_path, "tfrecord_native")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_dataset(cfg, device="cpu", num_hosts=2)
+    with pytest.raises(ValueError, match="must be divisible by num_hosts=3"):
+        make_dataset(cfg, device="cpu", num_hosts=3)
+    with pytest.raises(ValueError, match="host 2 of 4 gets an empty TFRecord shard"):
+        make_dataset(file_config(tmp_path, "tfrecord_native", batch_size=4), device="cpu",
+                     host_id=2, num_hosts=4)
     bad = cfg.replace(data=dataclasses.replace(cfg.data, device_dtype="float16"))
     with pytest.raises(ValueError, match="device_dtype"):
         make_dataset(bad, device="cpu")
+
+
+@pytest.mark.parametrize("source", ["tfrecord", "tfrecord_native"])
+def test_hosts_read_disjoint_shards_and_resume_as_the_reference(tmp_path, source):
+    """Two hosts read disjoint file shards (``files[host::2]``), batch/2
+    clips a step each, exactly what the JAX package's make_dataset gives
+    each host; a host resumed at call 3 reads what its uninterrupted stream
+    read there."""
+    write_files(tmp_path, n=24, files=2)
+    cfg = file_config(tmp_path, source, batch_size=4)
+    streams = [collect(make_dataset(cfg, stack=2, device="cpu", host_id=r, num_hosts=2), 5)
+               for r in range(2)]
+    for r, stream in enumerate(streams):
+        assert stream[0]["frames"].shape == (2, 2, 3, 16, 16, 3)
+        resumed = collect(make_dataset(cfg, stack=2, start_call=3, device="cpu", host_id=r,
+                                       num_hosts=2), 2)
+        assert_same(resumed, stream[3:])
+        theirs = jax_make_dataset(jax_file_config(tmp_path, source, batch_size=4), host_id=r,
+                                  num_hosts=2, stack=2)
+        try:
+            assert_same(stream, [host(theirs.batch_at(i)) for i in range(5)])
+        finally:
+            theirs.close()
+    # Disjoint: each file's clips differ, and a host reads only its file.
+    frames = [np.concatenate([b["frames"].reshape(-1, 3, 16, 16, 3) for b in s]) for s in streams]
+    assert not any(np.array_equal(a, b) for a in frames[0][:4] for b in frames[1][:4])

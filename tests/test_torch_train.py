@@ -322,12 +322,16 @@ def test_unknown_augment_op_raises_at_step_build():
 # -- the six knobs of the rollout and the step, against JAX ---------------------------
 
 
-def jax_randoms(jc, rng, step, b, horizon):
+def jax_randoms(jc, rng, step, b, horizon, rank=None):
     """The draws JAX's step makes from ``rng`` at ``step`` (its key folded
-    with the step, then split: the rollout key, then the augment key into
-    real / fake / G head), as the port's StepRandoms."""
+    with the step, and under ``make_dp_train_step`` with the ``rank``'s
+    ``axis_index``, then split: the rollout key, then the augment key into
+    real / fake / G head), as the port's StepRandoms; ``b`` is the rank's
+    batch."""
     t = jc.train
     key = jax.random.fold_in(rng, step)
+    if rank is not None:
+        key = jax.random.fold_in(key, rank)
     key, gkey = jax.random.split(key)
     out = StepRandoms()
     if t.scheduled_sampling:

@@ -42,7 +42,7 @@ from action_conditioned_gans_tpu_torch.train.step import make_train_step
 torch.set_num_threads(1)
 META = torch.device("meta")
 
-Call = collections.namedtuple("Call", "kernel shape w_shape stride kind groups y_bf16")
+Call = collections.namedtuple("Call", "kernel shape w_shape stride kind groups y_bf16 bf16")
 
 
 def record(run):
@@ -54,20 +54,23 @@ def record(run):
 
     def k1(x, w, s, b, **kw):
         calls.append(Call("k1", tuple(x.shape), tuple(w.shape), kw["stride"], kw["kind"],
-                          kw["groups"], None))
+                          kw["groups"], None, x.dtype == torch.bfloat16))
         return real["k1"](x, w, s, b, **kw)
 
     def k2(x, w, s, b, **kw):
-        calls.append(Call("k2", tuple(x.shape), tuple(w.shape), 2, kw["kind"], kw["groups"], None))
+        calls.append(Call("k2", tuple(x.shape), tuple(w.shape), 2, kw["kind"], kw["groups"], None,
+                          x.dtype == torch.bfloat16))
         return real["k2"](x, w, s, b, **kw)
 
     def k3(x, s, b, **kw):
-        calls.append(Call("k3", tuple(x.shape), None, None, "group", kw["groups"], None))
+        calls.append(Call("k3", tuple(x.shape), None, None, "group", kw["groups"], None,
+                          x.dtype == torch.bfloat16))
         return real["k3"](x, s, b, **kw)
 
     def k4(y, *args, **kw):
         split = sys._getframe(1).f_code.co_filename.endswith("norm_act.py")
-        calls.append(Call("k4", tuple(y.shape), None, None, "group", kw["groups"], split))
+        calls.append(Call("k4", tuple(y.shape), None, None, "group", kw["groups"], split,
+                          y.dtype == torch.bfloat16))
         return real["k4"](y, *args, **kw)
 
     conv.conv_norm_act, conv.conv_transpose_norm_act = k1, k2
@@ -114,8 +117,8 @@ def mainloop(c):
     cout = c.w_shape[3]
     if c.kernel == "k1":
         pixels = same_pad(h, c.w_shape[0], c.stride)[0] * same_pad(w, c.w_shape[1], c.stride)[0]
-        return conv_tile(1, cin, cout, pixels, b)[0]
-    return transpose_tile(1, cin, cout, int(c.kind == "group"), h, w, b)[0]
+        return conv_tile(int(c.bf16), cin, cout, pixels, b)[0]
+    return transpose_tile(int(c.bf16), cin, cout, int(c.kind == "group"), h, w, b)[0]
 
 
 def counts(calls, routes):
@@ -127,7 +130,7 @@ def counts(calls, routes):
     for c in calls:
         if c.kernel in ("k1", "k2"):
             by[names[c.kernel]][mainloop(c)] += 1
-    y_bf16 = sum(1 for c in calls if c.kernel == "k4" and c.y_bf16)
+    y_bf16 = sum(1 for c in calls if c.kernel == "k4" and c.y_bf16 and c.bf16)
     return launches, {k: dict(v) for k, v in by.items()}, (routes["fused"], routes["split"]), y_bf16
 
 
@@ -340,3 +343,20 @@ def test_kernel4_plans_at_the_new_batches(steps):
 
 
 REREAD = [("bfloat16", 16384, 64)]
+
+
+@pytest.mark.parametrize("path", sorted(chip_smoke.PHASE19_PATHS))
+def test_phase19_rank_counts_follow_the_routes(path):
+    """What one rank of phase 19's two launches a step, on its half of the
+    batch: EXPECTED[path] (the bfloat16 paths' entries are the single-device
+    steps', whose routes and mainloops do not depend on the batch; the
+    float32 paths run kernels 1-2 on their FMA mainloop and split the
+    layers the float32 envelope splits)."""
+    cfg = chip_smoke.phase19_config(path, chip_smoke.PHASE19_WORLD)
+    assert cfg.train.batch_size * chip_smoke.PHASE19_WORLD == chip_smoke.phase19_config(
+        path).train.batch_size
+    calls, routes = step_calls(cfg)
+    got, want = counts(calls, routes), chip_smoke.EXPECTED[path]
+    assert got[0] == want[0] and got[2] == want[2] and got[3] == want[3], got
+    assert got[1] == {k: v for k, v in want[1].items() if sum(v.values())}, got[1]
+    assert other_routes(routes) == chip_smoke.EXPECTED_ROUTES.get(path, {})
