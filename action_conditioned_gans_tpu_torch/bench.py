@@ -38,6 +38,7 @@ from action_conditioned_gans_tpu_torch.config import Config
 from action_conditioned_gans_tpu_torch.data import make_dataset
 from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
 from action_conditioned_gans_tpu_torch.parallel.mesh import make_mesh
+from action_conditioned_gans_tpu_torch.parallel.tp import place_state
 from action_conditioned_gans_tpu_torch.train.loop import sync_device
 from action_conditioned_gans_tpu_torch.train.state import init_state, state_from_params
 from action_conditioned_gans_tpu_torch.train.step import make_train_step
@@ -96,16 +97,19 @@ def run_bench(cfg: Config, steps: int = 30, warmup: int = 5, device=None) -> Dic
     device is given). ``warmup`` calls, one more window, then three timed
     windows of ``max(steps // 3, 2)`` calls of ``steps_per_call`` steps.
     Under a process group every rank runs the data-parallel step on its
-    share of the batch (``parallel/``); the line counts the global batch's
-    frames per device (``num_chips`` is the group's size)."""
+    share of the batch (``parallel/``), on its channel shard of the state
+    with a model axis; the line counts the global batch's frames per device
+    (``num_chips`` is the group's size)."""
     mesh = make_mesh(cfg.mesh, device=device)
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     spc = max(cfg.train.steps_per_call, 1)
-    state = init_state(cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+    state = place_state(init_state(cfg, torch.Generator().manual_seed(cfg.train.seed),
+                                   device=dev), mesh)
     step_fn = make_dp_train_step(cfg, mesh)
-    dataset = make_dataset(cfg, stack=spc, device=dev, host_id=mesh.rank, num_hosts=mesh.data)
+    dataset = make_dataset(cfg, stack=spc, device=dev, host_id=mesh.data_index,
+                           num_hosts=mesh.data)
 
     batch = dataset.batch_at(0)
     sync_device(dev)
@@ -144,15 +148,15 @@ def run_bench(cfg: Config, steps: int = 30, warmup: int = 5, device=None) -> Dic
         "batch_size": cfg.train.batch_size,
         "rollout_length": cfg.train.rollout_length,
         "steps_per_call": spc,
-        "num_chips": mesh.data,
+        "num_chips": mesh.world,
         "p50_step_latency_ms": p50 * 1e3,
         "p90_step_latency_ms": float(np.percentile(lat, 90)) * 1e3,
-        "frames_per_sec_per_chip": frames_per_step / p50 / mesh.data,
+        "frames_per_sec_per_chip": frames_per_step / p50 / mesh.world,
         "first_step_s": first_step_s,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
         "step_tflops_analytic": per_step / 1e12,
-        "achieved_tflops_per_chip_analytic": achieved / mesh.data / 1e12,
-        "roofline_utilization_analytic": achieved / mesh.data / PEAK_BF16_FLOPS,
+        "achieved_tflops_per_chip_analytic": achieved / mesh.world / 1e12,
+        "roofline_utilization_analytic": achieved / mesh.world / PEAK_BF16_FLOPS,
         "analytic_flops_count_remat_recompute": bool(cfg.train.remat_rollout),
         # The most memory the run held on the card (None on the CPU).
         "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9

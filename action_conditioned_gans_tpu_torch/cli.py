@@ -21,10 +21,15 @@ by ``torchrun`` (one process per device):
 
     torchrun --nproc-per-node N -m action_conditioned_gans_tpu_torch --multihost train ...
 
+With ``--set mesh.model=M`` the N ranks form a ``(N / M, M)`` mesh: each
+group of M consecutive ranks shares its rows and splits the conv channels
+(``parallel/tp.py``), and the groups run data-parallel.
+
 It initialises the process group from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``): NCCL on
 ``cuda:LOCAL_RANK`` (or ``--device``), gloo with ``--device cpu``; the group
-is destroyed on exit. ``train`` and ``bench`` then run data-parallel.
+is destroyed on exit. ``train`` and ``bench`` then run data-parallel (dp x
+tp with a model axis).
 """
 
 from __future__ import annotations

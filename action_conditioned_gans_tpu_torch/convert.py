@@ -8,7 +8,9 @@ the layouts (HWIO kernels, (F, 1) dense), so the conversion only renames and
 copies: a round trip is bit-exact. A JAX ``TrainState``'s ``g_params`` and
 ``d_params`` each cross with :func:`flax_to_state_dict` and back with
 :func:`state_dict_to_flax`; a whole JAX ``TrainState``, Adam states
-included, crosses with :func:`train_state_from_jax`.
+included, crosses with :func:`train_state_from_jax`, and into one rank's
+channel shards of it (``parallel/tp.py``) with
+:func:`train_state_shard_from_jax`.
 """
 
 from __future__ import annotations
@@ -113,3 +115,14 @@ def train_state_from_jax(cfg, jax_state_np, device=None):
                       g_params=params(jax_state_np.g_params), d_params=params(jax_state_np.d_params),
                       g_opt=adam(jax_state_np.g_opt), d_opt=adam(jax_state_np.d_opt),
                       g_ema=None if g_ema is None else params(g_ema))
+
+
+def train_state_shard_from_jax(cfg, jax_state_np, index: int, size: int, device=None):
+    """Model index ``index`` of ``size``'s channel shards of a JAX package
+    ``TrainState`` with numpy leaves (:func:`train_state_from_jax`, then
+    ``parallel.tp.shard_state``): what that rank of a ``(data, model)`` mesh
+    holds. ``parallel.tp.gather_state`` over the ranks' shards gives the
+    converted state back, bit for bit."""
+    from action_conditioned_gans_tpu_torch.parallel.tp import shard_state
+
+    return shard_state(train_state_from_jax(cfg, jax_state_np, device=device), index, size)

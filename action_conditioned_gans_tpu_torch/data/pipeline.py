@@ -115,6 +115,8 @@ class Prefetcher:
     the consumer's seconds waiting on the queue.
     """
 
+    close_timeout_s = 60.0  # how long close waits for the fill thread
+
     def __init__(self, dataset, depth: int = 2):
         self._ds = dataset
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -169,14 +171,21 @@ class Prefetcher:
         return adopt(item)
 
     def close(self) -> None:
-        """Stop the fill thread and close the source. Idempotent."""
+        """Stop the fill thread, wait for it to end, and close the source.
+        Idempotent. The thread ends once the ``batch_at`` in progress
+        returns (it checks the stop flag between batches and every 0.1 s
+        while putting); a thread still alive after ``close_timeout_s``
+        seconds raises RuntimeError, and the source stays open under it."""
         self._stop.set()
         try:  # drain, so that a blocked put returns at once
             while True:
                 self._q.get_nowait()
         except queue.Empty:
             pass
-        self._thread.join(timeout=5.0)
+        self._thread.join(timeout=self.close_timeout_s)
+        if self._thread.is_alive():
+            raise RuntimeError(f"Prefetcher.close: fill thread {self._thread.name!r} is still "
+                               f"in the source's batch_at after {self.close_timeout_s} s")
         inner_close = getattr(self._ds, "close", None)
         if inner_close is not None:
             inner_close()
@@ -236,7 +245,8 @@ def make_dataset(cfg: Config, stack: int = 1, start_call: int = 0, device=None,
     reads what the uninterrupted one would have read next. A file source
     comes wrapped in a ``Prefetcher``: close it (``close()``) when done.
 
-    Host ``host_id`` of ``num_hosts`` (a rank of a data-parallel run) gets
+    Host ``host_id`` of ``num_hosts`` (a data index of a parallel run, whose
+    model group's ranks read the same rows) gets
     its share of each step's ``train.batch_size`` clips: the synthetic
     stream its rows of the one-host batch, bit for bit; a file source
     reads the host's files (``native_tfrecord.shard_files``:

@@ -11,7 +11,13 @@ A Predictor runs on ``cuda`` unless it is given another ``device``; with no
 CUDA device and no ``device`` it raises. Given ``mesh``, a sequence of
 devices, it serves data-parallel: one replica of the generator per device,
 each batch split over them (``shard_batches``) and the outputs gathered on
-the first. Channel-parallel serving is ROADMAP Queue 1 item 8.
+the first. Given a ``(data, model)`` grid of devices (a sequence of equal
+rows), it also shards channels, in this one process as the reference's
+single-controller GSPMD serving does: each row serves its share of the
+batch; in a row, each column's device holds its shard of every layer that
+the model axis shards (``parallel.tp.tp_param_spec``, the training rule)
+and computes those channels, and the row's first device concatenates them
+and runs the replicated layers (:func:`grid_replica`).
 """
 
 from __future__ import annotations
@@ -75,26 +81,79 @@ def shard_batches(devices: Sequence, *arrays) -> List[tuple]:
             for i, dev in enumerate(devices)]
 
 
-def run_sharded(call: Callable, replicas: Mapping[torch.device, Any],
-                devices: Sequence[torch.device], args: tuple) -> torch.Tensor:
+def run_sharded(call: Callable, replicas: Mapping[Any, Any], devices: Sequence,
+                args: tuple) -> torch.Tensor:
     """``call(replicas[device], *share)`` on each device's share of ``args``
-    (:func:`shard_batches`), concatenated on the first device."""
+    (:func:`shard_batches`), concatenated on the first device. A device may
+    be a grid's row (a tuple of devices), whose share goes to its first."""
+    firsts = [d[0] if isinstance(d, tuple) else d for d in devices]
     outs = [call(replicas[dev], *share)
-            for dev, share in zip(devices, shard_batches(devices, *args))]
-    return torch.cat([o.to(devices[0]) for o in outs])
+            for dev, share in zip(devices, shard_batches(firsts, *args))]
+    return torch.cat([o.to(firsts[0]) for o in outs])
+
+
+def _is_row(entry) -> bool:
+    return isinstance(entry, (list, tuple))
 
 
 def mesh_devices(mesh: Optional[Sequence], device) -> Optional[List[torch.device]]:
     """``mesh`` as a list of devices (None without one); ``device``, when
-    given, must be its first."""
+    given, must be its first. A data axis only: a grid raises."""
     if mesh is None:
         return None
+    if any(_is_row(d) for d in mesh):
+        raise ValueError("this predictor shards the batch only: give it a sequence of devices "
+                         "(a data axis), not a (data, model) grid")
     devices = [torch.device(d) for d in mesh]
     if not devices:
         raise ValueError("mesh holds no device")
     if device is not None and torch.device(device) != devices[0]:
         raise ValueError(f"device {device} is not the mesh's first device {devices[0]}")
     return devices
+
+
+def mesh_grid(mesh: Optional[Sequence], device) -> Optional[List[List[torch.device]]]:
+    """``mesh`` as the rows of a ``(data, model)`` grid of devices (None
+    without one): a sequence of devices is a data axis, one device a row; a
+    sequence of equal rows gives each row's model columns. ``device``, when
+    given, must be its first."""
+    if mesh is None:
+        return None
+    if not any(_is_row(r) for r in mesh):
+        return [[d] for d in mesh_devices(mesh, device)]
+    if not all(_is_row(r) for r in mesh) or len({len(r) for r in mesh}) != 1 or not mesh[0]:
+        raise ValueError(f"a (data, model) grid needs rows of one length, each a sequence of "
+                         f"devices; got {mesh}")
+    grid = [[torch.device(d) for d in row] for row in mesh]
+    if device is not None and torch.device(device) != grid[0][0]:
+        raise ValueError(f"device {device} is not the mesh's first device {grid[0][0]}")
+    return grid
+
+
+def grid_replica(generator, row: Sequence[torch.device]):
+    """One row of a ``(data, model)`` grid: a copy of ``generator`` (its
+    parameters on the CPU) on the row's first device, in which every conv
+    block that a model axis of ``len(row)`` shards holds, in ``columns``,
+    each column's shard of its kernel, scale and bias on the column's device
+    (``models.common.ConvBlock``; its own parameters become column 0's
+    shard). Replicated blocks stay whole."""
+    from torch import nn
+
+    from action_conditioned_gans_tpu_torch.models.common import ConvBlock
+    from action_conditioned_gans_tpu_torch.parallel.tp import shard, tp_param_spec
+
+    rep, m = copy.deepcopy(generator), len(row)
+    for block in rep.modules():
+        if not isinstance(block, ConvBlock) or tp_param_spec(block.kernel_shape, m) is None:
+            continue
+        block.columns = [
+            (dev, *(None if p is None else shard(p.detach(), p.dim() - 1, j, m).to(dev)
+                    for p in (block.kernel, block.scale, block.bias)))
+            for j, dev in enumerate(row)]
+        for i, name in enumerate(("kernel", "scale", "bias")):
+            if getattr(block, name) is not None:
+                setattr(block, name, nn.Parameter(block.columns[0][i + 1], requires_grad=False))
+    return rep.to(row[0])
 
 
 def _tensor(a, name: str, shape: tuple, device) -> torch.Tensor:
@@ -136,7 +195,10 @@ class Predictor:
     ``mesh`` (a sequence of devices; or :meth:`with_mesh`) serves over
     several devices: a replica of the generator on each distinct device,
     the batch split over the sequence (``shard_batches``: it must divide the
-    batch) and the outputs gathered on the first device.
+    batch) and the outputs gathered on the first device. A ``(data, model)``
+    grid (a sequence of equal rows of devices) splits the batch over its
+    rows and, in each row, the sharded layers' channels over its columns
+    (module docstring; :func:`grid_replica`).
     """
 
     def __init__(self, cfg: Config, params: Mapping[str, Any], device=None,
@@ -145,15 +207,18 @@ class Predictor:
         # this module and serves without the model code.
         from action_conditioned_gans_tpu_torch.models import Generator
 
-        self.cfg, self.params, self.mesh = cfg, params, mesh_devices(mesh, device)
+        self.cfg, self.params, self.grid = cfg, params, mesh_grid(mesh, device)
+        self.mesh = None if self.grid is None else [row[0] for row in self.grid]
         self.device = self.mesh[0] if self.mesh else resolve_device(device)
         gen = Generator(cfg.model)
         gen.load_state_dict(flax_to_state_dict(params))
-        self.generator = gen.to(self.device).eval().requires_grad_(False)
-        self._replicas = {self.device: self.generator}
-        for dev in self.mesh or ():
-            if dev not in self._replicas:
-                self._replicas[dev] = copy.deepcopy(self.generator).to(dev)
+        gen.eval().requires_grad_(False)
+        self._replicas = {}
+        for row in self.grid or [[self.device]]:
+            if tuple(row) not in self._replicas:
+                self._replicas[tuple(row)] = (grid_replica(gen, row) if len(row) > 1
+                                              else copy.deepcopy(gen).to(row[0]))
+        self.generator = next(iter(self._replicas.values()))
 
     def with_mesh(self, mesh: Sequence) -> "Predictor":
         """A copy of this predictor serving over ``mesh`` (class docstring)."""
@@ -161,10 +226,10 @@ class Predictor:
 
     def _call(self, fn: Callable, args: tuple) -> torch.Tensor:
         """``fn(generator, *args)`` on this predictor's device, or on each
-        mesh device's share of the batch."""
-        if self.mesh is None:
+        mesh row's share of the batch."""
+        if self.grid is None:
             return fn(self.generator, *args)
-        return run_sharded(fn, self._replicas, self.mesh, args)
+        return run_sharded(fn, self._replicas, [tuple(row) for row in self.grid], args)
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, workdir: Optional[str] = None,
@@ -195,7 +260,7 @@ class Predictor:
                 cfg.train, ema_decay=0.999 if ema else 0.0))
             return state_tree(state_from_params(c, g_sd, d_sd, device=meta), cfg)
 
-        mesh_devices(mesh, device)  # a bad mesh raises before the restore
+        mesh_grid(mesh, device)  # a bad mesh raises before the restore
         dev = resolve_device(device) if mesh is None else device
         want_ema = use_ema or cfg.train.ema_decay > 0
         mgr = CheckpointManager(os.path.join(workdir or cfg.workdir, "checkpoints"))

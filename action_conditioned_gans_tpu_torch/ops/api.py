@@ -23,6 +23,13 @@ it is the same on the CPU and on the card.
 data-parallel step sets it. GroupNorm's statistics are per sample and need
 no sync.
 
+:func:`model_group` shards channels: inside it, every conv block whose
+kernel the model axis shards (``parallel.tp.tp_param_spec``) runs its conv,
+norm and activation on its own output channels, as a layer of the shard's
+width, and gathers them over the group (``models/common.py``). The blocks
+call the ops below on their shards, so each shard is routed as this module
+routes a layer of its width.
+
 :func:`plain_route` is the route of the R1 penalty's inner D call: every
 conv block and :func:`norm_act` inside it runs the plain ops of
 ``ops/reference.py`` (with the layer's engines) on every device, which
@@ -56,6 +63,7 @@ from action_conditioned_gans_tpu_torch.ops.kernels import norm_act as _norm_act
 
 _PLAIN = [False]  # inside plain_route()
 _BATCH_GROUP = [None]  # the process group of batch_stats_group()
+_MODEL_GROUP = [None]  # the process group of model_group()
 
 
 def reset_routes() -> None:
@@ -83,6 +91,22 @@ def batch_stats_group(group):
         yield
     finally:
         _BATCH_GROUP[0] = outer
+
+
+@contextlib.contextmanager
+def model_group(group):
+    """Conv blocks called inside run on their channel shard over ``group``,
+    the ranks of one data index (nothing changes when it is None)."""
+    outer, _MODEL_GROUP[0] = _MODEL_GROUP[0], group
+    try:
+        yield
+    finally:
+        _MODEL_GROUP[0] = outer
+
+
+def current_model_group():
+    """The process group of the enclosing :func:`model_group`, or None."""
+    return _MODEL_GROUP[0]
 
 
 def _stats_group(kind: str):
@@ -146,6 +170,21 @@ def _split_conv(x, w, stride, transpose, wgrad, deconv, conv):
     return _plain_conv(x, w, stride, transpose, wgrad, deconv, conv)
 
 
+def conv_alone(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, transpose: bool = False,
+               wgrad: str = "xla", deconv: str = "xla", conv: str = "xla") -> torch.Tensor:
+    """A conv block's conv alone, as its split route runs it (kernel 1 or 2
+    bare where the conv fits, else the plain conv with the layer's engines),
+    or the plain conv inside :func:`plain_route`; counted as the block's
+    route ("split" or "plain"). A channel shard whose GroupNorm groups span
+    shards runs this, gathers, and normalises the whole layer with
+    :func:`norm_act`."""
+    if _PLAIN[0]:
+        ROUTES["plain"] += 1
+        return _plain_conv(x, w, stride, transpose, wgrad, deconv, conv)
+    ROUTES["split"] += 1
+    return _split_conv(x, w, stride, transpose, wgrad, deconv, conv)
+
+
 def norm_act(
     x: torch.Tensor,
     scale: Optional[torch.Tensor],
@@ -168,8 +207,9 @@ def norm_act(
     device, counted in ``ROUTES["group_plain"]``. That is the route the
     reference takes there (its XLA composite: float32 statistics, the affine,
     the cast to the compute dtype, then the activation). It is not a fallback
-    from a kernel: the reference runs no kernel for these calls either."""
-    if kind == "group":
+    from a kernel: the reference runs no kernel for these calls either.
+    Inside :func:`plain_route` every kind is the plain composite."""
+    if kind == "group" and not _PLAIN[0]:
         if envelope.group_norm_act_supported(x.shape):
             return _norm_act.group_norm_act(x, scale, bias, groups=groups, eps=eps, act=act,
                                             leak=leak)

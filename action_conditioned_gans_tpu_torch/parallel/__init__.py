@@ -1,6 +1,7 @@
-"""Data parallelism over a ``torch.distributed`` process group (port of the
-JAX package's ``parallel/``): the mesh record and the batch layout
-(``parallel.mesh``), the collectives of the step (``parallel.comm``) and the
-data-parallel step (``parallel.dp``). Channel tensor parallelism (the JAX
-``parallel/gspmd.py``) is ROADMAP Queue 1 item 8. The package imports
-nothing, so that ``train.step`` can import ``parallel.comm``."""
+"""Data and channel tensor parallelism over a ``torch.distributed`` process
+group (port of the JAX package's ``parallel/``): the mesh record and the
+batch layout (``parallel.mesh``), the collectives of the step
+(``parallel.comm``), the data-parallel step (``parallel.dp``) and the
+channel sharding of the state and the dp x tp step (``parallel.tp``, the
+JAX ``parallel/gspmd.py``). The package imports nothing, so that
+``train.step`` can import ``parallel.comm``."""

@@ -1,4 +1,4 @@
-"""The collectives of the data-parallel step.
+"""The collectives of the data- and tensor-parallel steps.
 
 ``mean_reduce_`` averages a set of tensors over the group in place with ONE
 all-reduce of their flattened concatenation (the step's gradient sets and
@@ -9,6 +9,18 @@ gradient of the global batch's loss), and is itself an all-reduce that
 autograd differentiates again (R1's double backward through batch norm).
 Every rank must issue the same collectives in the same order; the step's
 graph is the same on every rank, so its backward is too.
+
+Channel tensor parallelism (``parallel/tp.py``) wraps each sharded conv
+block in the Megatron pair over the model group: :func:`copy_to_model` at
+its input (identity forward; the backward sums the ranks' partial input
+cotangents, each rank's conv having seen only its output channels) and
+:func:`gather_from_model` at its output (all-gather of the channel axis
+forward; every rank of the group holds the same gathered tensor and the
+same cotangent of it, so the backward is this rank's slice, and an
+all-reduce there would multiply the gradient by the group's size). Their
+backwards are the pair's other two members (an all-reduce with an identity
+backward, a slice with a gathering backward), so autograd differentiates
+them again, as R1's double backward does.
 """
 
 from __future__ import annotations
@@ -32,9 +44,96 @@ class _AllReduceSum(torch.autograd.Function):
         return _AllReduceSum.apply(grad, ctx.group), None
 
 
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks, differentiable (any order);
+    its backward sums the cotangents too: for a sum whose every rank uses
+    the result in its own way (a spectral norm's sigma over a kernel's
+    channel shards)."""
+    return _AllReduceSum.apply(x, group)
+
+
 def all_reduce_mean(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``x`` over ``group``'s ranks, differentiable (any order)."""
     return _AllReduceSum.apply(x, group) / dist.get_world_size(group)
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the backward all-reduces (:class:`_Reduce`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Reduce.apply(grad, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce (sum) forward; identity backward (:class:`_Copy`): every
+    rank uses the sum alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Copy.apply(grad, ctx.group), None
+
+
+def _gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
+
+
+def _own_slice(x: torch.Tensor, group) -> torch.Tensor:
+    return x.chunk(dist.get_world_size(group), dim=-1)[dist.get_rank(group)].contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of the last axis forward; this rank's slice backward
+    (:class:`_Split`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Split.apply(grad, ctx.group), None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's slice of the last axis forward; all-gather backward
+    (:class:`_Gather`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _own_slice(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Gather.apply(grad, ctx.group), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` at the input of a channel-sharded block (module docstring)."""
+    return _Copy.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """A channel shard's output, gathered over ``group`` in rank order along
+    the last axis (module docstring)."""
+    return _Gather.apply(x, group)
 
 
 def mean_reduce_(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:

@@ -19,8 +19,20 @@ device, ``cuda`` unless another is given. Rank 0 alone prints, writes
 metrics and samples and saves checkpoints; every save is followed by a
 barrier, and the SIGTERM flag is max-reduced over the ranks before each
 save decision, so that no rank waits in a collective another skipped.
-Without a group the run is one rank. A mesh with a model axis (channel
-tensor parallelism) waits on ROADMAP Queue 1 item 8.
+Without a group the run is one rank.
+
+With ``mesh.model`` > 1 the ranks form a ``(data, model)`` mesh
+(``parallel/tp.py``): every rank builds the whole state from the seed and
+keeps its channel shard; the ranks of one data index read the same rows
+(the data pipeline's host is the data index, of ``mesh.data`` hosts); every
+save and every held-out rollout gathers the shards over each model group
+first, so that rank 0 writes the one-rank checkpoint format, which a
+one-rank run, ``serve --workdir`` and ``Predictor.from_checkpoint`` read
+unchanged; a resume reads the whole state on every rank and keeps the
+shard. The SIGTERM max-reduce and the barriers run over the whole world.
+The reference forces ``backend=xla`` on a model axis (GSPMD cannot
+partition ``pallas_call``); the port routes each shard through
+``ops/api.py`` like any layer, so kernels 1-4 run on the shards.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from action_conditioned_gans_tpu_torch.data import make_dataset
 from action_conditioned_gans_tpu_torch.parallel import comm
 from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
 from action_conditioned_gans_tpu_torch.parallel.mesh import make_mesh
+from action_conditioned_gans_tpu_torch.parallel.tp import place_state, whole_generator, whole_state
 from action_conditioned_gans_tpu_torch.train.state import (
     TrainState,
     init_state,
@@ -74,7 +87,8 @@ def train(
     ``workdir`` (``cfg.workdir`` when None), resuming from its latest
     checkpoint unless ``resume`` is False. ``profile_steps`` > 0 writes a
     ``torch.profiler`` chrome trace of that many steps, after a warm-up, to
-    ``<workdir>/profile`` (rank 0's). Returns the final state."""
+    ``<workdir>/profile`` (rank 0's). Returns the final state (this rank's
+    shard of it on a mesh with a model axis)."""
     mesh = make_mesh(cfg.mesh, device=device)
     dev, lead = mesh.device, mesh.rank == 0
     workdir = workdir or cfg.workdir
@@ -86,31 +100,39 @@ def train(
         if lead:
             print(msg, flush=True)
 
-    state = init_state(cfg, torch.Generator().manual_seed(t.seed), device=dev)
+    whole = init_state(cfg, torch.Generator().manual_seed(t.seed), device=dev)
     # The step's draws come from seed + 1 and the step number: the key the
     # JAX loop passes (PRNGKey(seed + 1), folded with the step).
     step_fn = make_dp_train_step(cfg, mesh, seed=t.seed + 1)
-    g_n, d_n = param_count(state)
+    g_n, d_n = param_count(whole)
     say(f"[acgan] {cfg.name}: G params {g_n:,} | D params {d_n:,} | device {dev} | "
-        f"mesh data={mesh.data}")
+        f"mesh data={mesh.data}" + (f" model={mesh.model}" if mesh.model > 1 else ""))
+    if mesh.model > 1:
+        say(f"[acgan] model-parallel mesh: conv channels sharded over model={mesh.model}; each "
+            "shard keeps its kernel route (the reference forces backend=xla here: GSPMD cannot "
+            "partition pallas_call)")
 
     ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"), keep=t.checkpoint_keep)
     start = 0
     if resume and ckpt.latest_step() is not None:
-        state = restore_state(cfg, ckpt, template=state)
-        start = state.step
+        whole = restore_state(cfg, ckpt, template=whole)
+        start = whole.step
         say(f"[acgan] resumed from checkpoint at step {start}")
+    state = place_state(whole, mesh)
+    del whole
 
     def save(step: int) -> None:
-        """Rank 0 writes ``step``; every rank then waits for the write."""
+        """Rank 0 writes ``step`` (the state gathered over each model group,
+        every rank taking part); every rank then waits for the write."""
+        full = whole_state(state, cfg, mesh)
         if lead:
-            ckpt.save(step, state_to_host(state, cfg))
+            ckpt.save(step, state_to_host(full, cfg))
         if mesh.group is not None:
             comm.barrier(mesh.group, dev)
 
     k = max(t.steps_per_call, 1)
-    dataset = make_dataset(cfg, stack=k, start_call=start // k, device=dev, host_id=mesh.rank,
-                           num_hosts=mesh.data)
+    dataset = make_dataset(cfg, stack=k, start_call=start // k, device=dev,
+                           host_id=mesh.data_index, num_hosts=mesh.data)
     writer = MetricWriter(os.path.join(workdir, "tb") if lead else None, echo=lead)
 
     # SIGTERM (preemption) only sets a flag; the loop checkpoints and exits
@@ -126,7 +148,7 @@ def train(
     # eval scalars move only with the model.
     sample_fn = held_out = None
 
-    def write_samples(step_idx: int) -> None:
+    def write_samples(step_idx: int, g_params, g_ema) -> None:
         nonlocal sample_fn, held_out
         from action_conditioned_gans_tpu_torch.train.sample import (
             eval_metrics,
@@ -144,11 +166,11 @@ def train(
                 held_out = next(stream)
             finally:
                 stream.close()
-        preds = sample_fn(state.g_params, held_out)
+        preds = sample_fn(g_params, held_out)
         em = eval_metrics(preds, held_out["frames"][:, 1:])
-        if state.g_ema is not None:
+        if g_ema is not None:
             # The EMA weights too: the set a served model would use.
-            ema_preds = sample_fn(state.g_ema, held_out)
+            ema_preds = sample_fn(g_ema, held_out)
             em.update({f"{k}_ema": v
                        for k, v in eval_metrics(ema_preds, held_out["frames"][:, 1:]).items()})
             writer.write_images(step_idx, "pred_final_frame_ema",
@@ -227,8 +249,13 @@ def train(
             writer.tick()
             if crossed(before, done, t.checkpoint_every):
                 save(done)
-            if crossed(before, done, t.sample_every) and lead:
-                write_samples(done)
+            if crossed(before, done, t.sample_every):
+                # G whole (gathered over each model group on a model axis).
+                g_params = whole_generator(state.g_params, cfg, mesh)
+                g_ema = (None if state.g_ema is None
+                         else whole_generator(state.g_ema, cfg, mesh))
+                if lead:
+                    write_samples(done, g_params, g_ema)
             stop = preempted["flag"]
             if mesh.group is not None:  # every rank takes the same branch
                 stop = comm.any_rank(stop, mesh.group, dev)
@@ -258,7 +285,7 @@ def train(
     if p50:
         # The global batch's frames, per device.
         fps = writer.frames_per_sec(t.batch_size * max(t.rollout_length, 1) * k,
-                                    num_chips=mesh.data)
+                                    num_chips=mesh.world)
         # Ticks follow the host's calls, which return before the device is
         # done: a dispatch cadence, not a device step time.
         say(f"[acgan] p50 dispatch cadence {p50 * 1e3:.2f} ms ({k} step(s)/call) | "

@@ -148,23 +148,24 @@ class Adam:
             nu={k: zeros(p) for k, p in params.items()},
         )
 
-    def clip(self, grads: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    def clip(self, grads: Sequence[torch.Tensor], norm_fn=global_norm) -> Sequence[torch.Tensor]:
         """optax.clip_by_global_norm: unchanged below the norm, else
-        ``(g / norm) * clip_norm``."""
+        ``(g / norm) * clip_norm``; ``norm_fn`` takes the global norm (a
+        channel-sharded step's sums the shards over its model group)."""
         if self.clip_norm <= 0:
             return grads
-        norm = global_norm(grads)
+        norm = norm_fn(grads)
         keep = norm < self.clip_norm
         return [torch.where(keep, g, (g / norm) * self.clip_norm) for g in grads]
 
     @torch.no_grad()
     def update_(self, params: Mapping[str, torch.Tensor], grads: Sequence[torch.Tensor],
-                state: AdamState) -> None:
+                state: AdamState, norm=global_norm) -> None:
         """One update of ``params`` (and ``state``) in place; ``grads`` in the
-        order of ``params``."""
+        order of ``params``; ``norm``: as :meth:`clip`'s ``norm_fn``."""
         keys = list(params)
         ps = [params[k] for k in keys]
-        gs = self.clip([g.float() for g in grads])
+        gs = self.clip([g.float() for g in grads], norm)
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         state.count += 1
         bc1 = 1.0 - self.b1**state.count

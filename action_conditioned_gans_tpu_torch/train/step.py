@@ -41,6 +41,17 @@ their Adam updates, each set in one all-reduce, the metrics too (the
 gradient norms after the average), and batch-norm layers average their
 moments over the ranks (``ops.api.batch_stats_group``).
 
+On a mesh with a model axis (``parallel/tp.py``) the state holds this
+rank's channel shards, every conv block that the axis shards runs on its
+channels inside ``ops.api.model_group``, and the step follows the
+reference's GSPMD step: its draws are the one-rank draws of the global
+batch, of which each rank takes its data index's rows; gradients and
+metrics are averaged over the data group (and batch norm's moments, each
+shard's own channels); the replicated parameters' gradients are also
+averaged over the model group, which holds them equal already, so that
+their ranks stay bit for bit equal; the gradient norms (``log_grad_norms``,
+``grad_clip_norm``) are the whole model's.
+
 On CUDA every conv block runs its Hopper kernel forward and, for a GroupNorm
 layer, the GroupNorm+activation backward kernel (``ops/kernels``); on the CPU
 the plain versions.
@@ -137,10 +148,21 @@ def disc_chunks(n_flat: int, disc_microbatch: int, norm: str = "group") -> int:
     return n_flat // mb if mb else 1
 
 
-def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=None):
+def _rows(randoms: StepRandoms, index: int, size: int) -> StepRandoms:
+    """Data index ``index`` of ``size``'s rows of a global batch's draws:
+    equal blocks of ``use_pred`` (B, T) and of the augmentation parameters
+    (B*T, .), whose folded time is sample-major."""
+    return StepRandoms(**{f.name: None if getattr(randoms, f.name) is None
+                          else getattr(randoms, f.name).chunk(size)[index]
+                          for f in dataclasses.fields(randoms)})
+
+
+def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=None, tp=None):
     """Build the step: ``(TrainState, batch, randoms=None) -> (TrainState,
     metrics)``; over ``group`` (a ``torch.distributed`` process group) a
-    rank's step of the data-parallel step (module docstring).
+    rank's step of the data-parallel step (module docstring), and with
+    ``tp`` (a ``parallel.mesh.Mesh`` with a model axis, whose data group is
+    ``group``) a rank's step of the dp x tp step on its shard of the state.
 
     The batch is the JAX package's clip layout, numpy arrays or tensors:
     ``frames`` (B, T+1, H, W, C) in [-1, 1], ``actions`` (B, T, A), and
@@ -203,10 +225,47 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         return L.generator_adv_loss(fake_logits)
 
     batch_norm = m.norm == "batch"
-    rank = dist.get_rank(group) if group is not None else None
+    # Per-rank draws on the data-parallel path; one global draw under TP.
+    rank = dist.get_rank(group) if group is not None and tp is None else None
+    model_group = tp.model_group if tp is not None else None
+    g_specs = d_specs = {}
+    if tp is not None:
+        from action_conditioned_gans_tpu_torch.parallel.tp import param_specs
+
+        g_specs = param_specs(gen.state_dict(), tp.model)
+        d_specs = param_specs(disc.state_dict(), tp.model)
 
     def mean_over_ranks(tensors):
         return comm.mean_reduce_(tensors, group) if group is not None else list(tensors)
+
+    def sharded(params, specs):
+        """Whether each parameter (in order) is a channel shard."""
+        return [specs.get(k) is not None for k in params]
+
+    def mean_replicated(grads, mask):
+        """The replicated parameters' gradients averaged over the model group."""
+        if model_group is not None and not all(mask):
+            comm.mean_reduce_([g for g, s in zip(grads, mask) if not s], model_group)
+        return grads
+
+    def norm_of(mask):
+        """The whole model's global norm of gradients in the order of
+        ``mask``: the shards' squares summed over the model group, each
+        replicated tensor counted once."""
+        if model_group is None:
+            return global_norm
+
+        def squares(tensors):
+            if not tensors:
+                return torch.zeros((), device=dev)
+            return torch.stack(torch._foreach_norm([t.float() for t in tensors])).square().sum()
+
+        def norm(tensors):
+            shard_sq = squares([t for t, s in zip(tensors, mask) if s])
+            dist.all_reduce(shard_sq, group=model_group)
+            return torch.sqrt(shard_sq + squares([t for t, s in zip(tensors, mask) if not s]))
+
+        return norm
 
     def r1_penalty(d_params, real, cond, action, st):
         """E over the batch of |grad_x sum D(x)|^2 at ``real`` (float32),
@@ -218,7 +277,7 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         return gx.float().square().sum(dim=tuple(range(1, gx.dim()))).mean()
 
     def train_step(state: TrainState, batch, randoms: Optional[StepRandoms] = None):
-        with api.batch_stats_group(group):
+        with api.batch_stats_group(group), api.model_group(model_group):
             return one_step(state, batch, randoms)
 
     def one_step(state: TrainState, batch, randoms: Optional[StepRandoms]):
@@ -233,8 +292,16 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         states = tensor(batch["states"]) if m.state_dim else None
         b, horizon = actions.shape[:2]
         ss_prob = scheduled_sampling_prob(state.step, t)
-        if randoms is None:
+        if tp is not None:
+            # The global batch's draws (given, or the one-rank draw), this
+            # rank's rows of them.
+            if randoms is None:
+                randoms = draw_step_randoms(cfg, seed, state.step, b * tp.data, horizon, dev)
+            randoms = _rows(randoms, tp.data_index, tp.data)
+        elif randoms is None:
             randoms = draw_step_randoms(cfg, seed, state.step, b, horizon, dev, rank)
+        g_mask, d_mask = sharded(state.g_params, g_specs), sharded(state.d_params, d_specs)
+        g_norm, d_norm = norm_of(g_mask), norm_of(d_mask)
 
         # One generator rollout, kept with its graph for G's update.
         g_leaves = leaves(state.g_params)
@@ -299,7 +366,8 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
                     torch._foreach_add_(d_grads, grads)
                 d_loss = mean_of(d_loss, loss)
                 real_acc, fake_acc = mean_of(real_acc, accs[0]), mean_of(fake_acc, accs[1])
-            d_tx.update_(state.d_params, mean_over_ranks(d_grads), state.d_opt)
+            d_tx.update_(state.d_params, mean_replicated(mean_over_ranks(d_grads), d_mask),
+                         state.d_opt, norm=d_norm)
 
         # G head against the updated, frozen D: differentiate w.r.t. the
         # predictions only, chunk by chunk, then chain that cotangent through
@@ -319,9 +387,10 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
             d_preds.append(dp * (1.0 / nc) if nc > 1 else dp)
             g_loss, g_adv = mean_of(g_loss, loss), mean_of(g_adv, adv)
             g_recon = mean_of(g_recon, recon)
-        g_grads = mean_over_ranks(torch.autograd.grad(
-            flat_preds, list(g_leaves.values()), d_preds[0] if nc == 1 else torch.cat(d_preds)))
-        g_tx.update_(state.g_params, g_grads, state.g_opt)
+        g_grads = mean_replicated(mean_over_ranks(torch.autograd.grad(
+            flat_preds, list(g_leaves.values()), d_preds[0] if nc == 1 else torch.cat(d_preds))),
+            g_mask)
+        g_tx.update_(state.g_params, g_grads, state.g_opt, norm=g_norm)
         if t.ema_decay > 0:
             ema_update_(state.g_ema, state.g_params, t.ema_decay)
 
@@ -337,21 +406,22 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         if t.log_grad_norms:
             # Pre-clip global norms of the averaged gradients; D's is the last
             # disc_steps iteration's.
-            metrics["g_grad_norm"] = global_norm(g_grads)
-            metrics["d_grad_norm"] = global_norm(d_grads)
+            metrics["g_grad_norm"] = g_norm(g_grads)
+            metrics["d_grad_norm"] = d_norm(d_grads)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step
 
 
-def make_multi_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=None):
+def make_multi_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=None,
+                          tp=None):
     """k = ``cfg.train.steps_per_call`` fused steps a call, in sequence, over
     a stacked batch whose leaves have a leading (k, ...) axis; returns the
     LAST step's metrics (the JAX package's ``lax.scan`` of the step; each
     step draws from ``seed`` and its own step number). With k <= 1 this is
-    the single step over an unstacked batch. ``group``: as
+    the single step over an unstacked batch. ``group``, ``tp``: as
     :func:`make_train_step`."""
-    step = make_train_step(cfg, device, seed, group)
+    step = make_train_step(cfg, device, seed, group, tp)
     k = cfg.train.steps_per_call
     if k <= 1:
         return step

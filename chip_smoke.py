@@ -260,10 +260,29 @@ Phases, each of which fails the run (non-zero exit, no final line):
     [cuda:0, cuda:0]: config1 bf16 predict B=128 and rollout T=10 B=16 bit
     for bit against one device (launches counted), config5 float32 within
     1e-3. Its times are correctness runs (two processes share one card).
+20. Channel tensor parallelism (``parallel/tp.py``). (a-c) Gloo ranks,
+    processes of this script (``--tp-rank``) sharing cuda:0, each holding
+    its channel shard of the state and its data index's rows:
+    PHASE20_PATHS (config1 B=128 in bfloat16 and float32 and config3 B=32
+    on the 1x2 mesh, two ranks; config1 B=128 on 2x2, four), 3 steps
+    against the one-rank step on the whole batch here at phase 19's bars;
+    the replicated parameters bit for bit equal on every rank, each shard on
+    the ranks of its model index; each rank's first step counted against
+    EXPECTED[path], every kernel call recorded. (d) ``train`` on the 1x2
+    mesh (phase 12's arguments, ``mesh.model=2``): 16 steps resumed to 32
+    bit for bit equal to 32 uninterrupted; the step-32 checkpoint is the
+    state the ranks gather, bit for bit, restored by a one-rank
+    ``Predictor.from_checkpoint`` and resumed by a one-rank ``train`` (16
+    steps, counted). (e) ``Predictor`` over the grid [[cuda:0, cuda:0]]:
+    config5 predict B=32 and rollout T=30 B=8 against one device within
+    3e-2 (counted), float32 within 1e-4. Then every distinct shard-shaped
+    call of kernels 1-4 recorded in (a-c) and (e) against its plain version
+    at phases 10 and 11's bars. Its times are correctness runs: the ranks
+    share one card and gloo moves every gather through the host.
 
 Then a ``kernels`` JSON line (per kernel: launches summed over every main
 path, the config2, config4 and config5 steps, the config1 file, config2 and
-config4 loops, the AOT programs, phase 18's paths and phase 19's ranks included; max |err|,
+config4 loops, the AOT programs, phase 18's paths and phases 19 and 20's ranks included; max |err|,
 kernel, plain, bound and library
 times; kernel 4's over the config1 step's calls, and its config3 step's sums
 beside them), then the final line ``{"ok": true, "device": {...}}``.
@@ -271,6 +290,7 @@ beside them), then the final line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -402,6 +422,37 @@ EXPECTED = {
                                  gn_act_bwd=0),
                             dict(conv_norm_act=dict(fma=13), conv_transpose_norm_act=dict(fma=3)),
                             (5, 14), 0),
+    # Phase 20: one rank's step of a (data, model) mesh on its channel shard
+    # (parallel/tp.py), and a generator call of a serving grid's row (each
+    # sharded layer once a column). Each shard is routed as a layer of its
+    # width: at Cout/2, config1's dec_1 (32 channels) takes kernel 2's WMMA
+    # mainloop; config3's split layers fuse on their shards (no kernel 3);
+    # config5's 64-channel shards fuse where the full layers split, and its
+    # other split layers run kernel 3 on 2 x 4 shards, 7 of 21 block calls
+    # staying split. dec_0 (3 channels) stays whole.
+    "config1 step tp2": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
+                              gn_act_bwd=11),
+                         dict(conv_norm_act=dict(wgmma=9, wmma=3),
+                              conv_transpose_norm_act=dict(wgmma=1, wmma=1, narrow=1)),
+                         (15, 0), 0),
+    "config1 f32 step tp2": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
+                                  gn_act_bwd=11),
+                             dict(conv_norm_act=dict(fma=12), conv_transpose_norm_act=dict(fma=3)),
+                             (15, 0), 0),
+    "config3 step tp2": (dict(conv_norm_act=25, conv_transpose_norm_act=4, group_norm_act=0,
+                              gn_act_bwd=25),
+                         dict(conv_norm_act=dict(wgmma=20, wmma=5),
+                              conv_transpose_norm_act=dict(wgmma=2, wmma=1, narrow=1)),
+                         (29, 0), 0),
+    "config1 step dp2tp2": (dict(conv_norm_act=12, conv_transpose_norm_act=3, group_norm_act=0,
+                                 gn_act_bwd=11),
+                            dict(conv_norm_act=dict(wgmma=9, wmma=3),
+                                 conv_transpose_norm_act=dict(wgmma=1, wmma=1, narrow=1)),
+                            (15, 0), 0),
+    "config5 tp2 serving": (dict(conv_norm_act=10, conv_transpose_norm_act=6, group_norm_act=4,
+                                 gn_act_bwd=0),
+                            dict(conv_norm_act=dict(wgmma=8, wmma=2),
+                                 conv_transpose_norm_act=dict(wgmma=6)), (16, 5)),
 }
 # The routes beside (fused, split) per generator call or step, 0 where not
 # given (ops/api.py): "bare" split convs on kernel 1 or 2, "plain" conv
@@ -1134,12 +1185,54 @@ def config1_train_config(batch=128):
                                                 adam_moment_dtype="bfloat16"))
 
 
+@contextlib.contextmanager
+def recorded_calls():
+    """Every call of the kernel wrappers made inside, recorded (the calls
+    themselves run): ``conv`` (kernels 1-2: name, x shape, dtype, w shape,
+    keywords, bias is None), ``norm`` (kernel 3: x shape, dtype, keywords,
+    under autograd) and ``gn_bwd`` (kernel 4: y shape, dtype, groups, act,
+    leak, y dtype)."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
+
+    rec = {"conv": [], "norm": [], "gn_bwd": []}
+    real = gn_bwd.gn_act_bwd
+    real_conv = {name: getattr(conv, name) for name in ("conv_norm_act", "conv_transpose_norm_act")}
+    real_norm = norm_act.group_norm_act
+
+    def record(y, scale, out, g, mean=None, rstd=None, **kw):
+        rec["gn_bwd"].append((tuple(y.shape), out.dtype, kw["groups"], kw["act"], kw["leak"],
+                              y.dtype))
+        return real(y, scale, out, g, mean, rstd, **kw)
+
+    def record_conv(name):
+        def wrapper(x, w, scale, bias, **kw):
+            rec["conv"].append((name, tuple(x.shape), x.dtype, tuple(w.shape),
+                                tuple(sorted(kw.items())), bias is None))
+            return real_conv[name](x, w, scale, bias, **kw)
+        return wrapper
+
+    def record_norm(x, scale, bias, **kw):
+        rec["norm"].append((tuple(x.shape), x.dtype, tuple(sorted(kw.items())), x.requires_grad))
+        return real_norm(x, scale, bias, **kw)
+
+    gn_bwd.gn_act_bwd = record
+    norm_act.group_norm_act = record_norm
+    for name in real_conv:
+        setattr(conv, name, record_conv(name))
+    try:
+        yield rec
+    finally:
+        gn_bwd.gn_act_bwd = real
+        norm_act.group_norm_act = real_norm
+        for name, fn in real_conv.items():
+            setattr(conv, name, fn)
+
+
 def phase_training(cfg, path, steps=20, warmup=3, n_batches=4):
     """``cfg`` at full width with seeded weights and clips drawn on the card
     from a seed (B, T and the state as ``cfg`` has them): the warm-up steps,
     one counted step (counts set to 0 before and read after, every kernel
     wrapper's calls recorded), then ``steps`` steps timed."""
-    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
     from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
     from action_conditioned_gans_tpu_torch.train.state import param_count
 
@@ -1166,39 +1259,12 @@ def phase_training(cfg, path, steps=20, warmup=3, n_batches=4):
     torch.cuda.synchronize()
 
     # The main path's counted step; every kernel wrapper's calls are recorded.
-    calls, conv_calls, norm_calls, real = [], [], [], gn_bwd.gn_act_bwd
-    real_conv = {name: getattr(conv, name) for name in ("conv_norm_act", "conv_transpose_norm_act")}
-    real_norm = norm_act.group_norm_act
-
-    def record(y, scale, out, g, mean=None, rstd=None, **kw):
-        calls.append((tuple(y.shape), out.dtype, kw["groups"], kw["act"], kw["leak"], y.dtype))
-        return real(y, scale, out, g, mean, rstd, **kw)
-
-    def record_conv(name):
-        def wrapper(x, w, scale, bias, **kw):
-            conv_calls.append((name, tuple(x.shape), x.dtype, tuple(w.shape),
-                               tuple(sorted(kw.items())), bias is None))
-            return real_conv[name](x, w, scale, bias, **kw)
-        return wrapper
-
-    def record_norm(x, scale, bias, **kw):
-        norm_calls.append((tuple(x.shape), x.dtype, tuple(sorted(kw.items())), x.requires_grad))
-        return real_norm(x, scale, bias, **kw)
-
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    gn_bwd.gn_act_bwd = record
-    norm_act.group_norm_act = record_norm
-    for name in real_conv:
-        setattr(conv, name, record_conv(name))
-    try:
+    with recorded_calls() as rec:
         state, m = step(state, batches[warmup % n_batches])
         torch.cuda.synchronize()
-    finally:
-        gn_bwd.gn_act_bwd = real
-        norm_act.group_norm_act = real_norm
-        for name, fn in real_conv.items():
-            setattr(conv, name, fn)
+    calls, conv_calls, norm_calls = rec["gn_bwd"], rec["conv"], rec["norm"]
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts(path, launches, 1)
@@ -3222,8 +3288,9 @@ def dp_rank_train(job, rank):
 
 
 def dp_rank_main(argv):
-    """``chip_smoke.py --dp-rank RANK WORLD INIT_FILE JOB.json``: one rank of a
-    gloo group on cuda:0 (phase 19's two-rank runs); writes
+    """``chip_smoke.py --dp-rank RANK WORLD INIT_FILE JOB.json`` (phase 19's
+    ranks; ``--tp-rank``, phase 20's): one rank of a gloo group on cuda:0;
+    writes
     ``JOB.json.rank<RANK>.json``."""
     import datetime
 
@@ -3241,7 +3308,11 @@ def dp_rank_main(argv):
                             timeout=datetime.timedelta(seconds=300))
     try:
         t0 = time.perf_counter()
-        results = {"steps": dp_rank_steps, "train": dp_rank_train}[job["mode"]](job, rank)
+        modes = {"steps": dp_rank_steps, "train": dp_rank_train, "tp_steps": tp_rank_steps,
+                 "tp_train": tp_rank_train}
+        # A list of jobs runs in turn, in one process: a list of results.
+        results = ([modes[j["mode"]](j, rank) for j in job["jobs"]] if "jobs" in job
+                   else modes[job["mode"]](job, rank))
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -3250,17 +3321,18 @@ def dp_rank_main(argv):
     return 0
 
 
-def run_dp_ranks(job, tmp, label, world=PHASE19_WORLD, timeout=900):
+def run_dp_ranks(job, tmp, label, world=PHASE19_WORLD, timeout=900, flag="--dp-rank"):
     """``job`` on ``world`` rank processes of this script on cuda:0 (a gloo
-    group, ``file://`` init under ``tmp``), joined by the deadline and killed
-    after it; returns each rank's results and seconds."""
+    group, ``file://`` init under ``tmp``; ``flag`` names the phase's rank
+    mode), joined by the deadline and killed after it; returns each rank's
+    results and seconds."""
     path = os.path.join(tmp, f"{label}.json")
     with open(path, "w") as f:
         json.dump(job, f)
     init = os.path.join(tmp, f"{label}.init")
     logs = [open(f"{path}.rank{r}.log", "w+") for r in range(world)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
                                str(world), init, path], cwd=ROOT, stdout=logs[r],
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
     try:
@@ -3626,6 +3698,391 @@ def phase19(smi):
     return launches
 
 
+# -- phase 20: channel tensor parallelism ----------------------------------------------
+
+
+# Phase 20 (a-c): what each gloo rank of a (data, model) mesh sharing cuda:0 trains:
+# (preset, overrides, (data, model)) at the global batch, one step a call. Each rank
+# holds its channel shard of the state (parallel/tp.py) and its data index's rows of
+# the batch. The float32 path is phase 19's (float32 moments, TF32 and cuDNN off, D's
+# learning rate 0).
+PHASE20_STEPS = 3
+PHASE20_PATHS = {
+    "config1 step tp2": ("config1", [], (1, 2)),
+    "config1 f32 step tp2": ("config1", PHASE19_F32, (1, 2)),
+    "config3 step tp2": ("config3", [], (1, 2)),
+    "config1 step dp2tp2": ("config1", [], (2, 2)),
+}
+# Phase 20 (d): `train` as phase 12 drives it, on the 1x2 mesh, a checkpoint every 16 steps.
+PHASE20_LOOP_ARGS = [*LOOP_ARGS, "--set", "mesh.model=2", "--set", "train.checkpoint_every=16"]
+
+
+def phase20_config(path):
+    """Phase 20's config of ``path`` at the global batch, with its mesh."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+
+    preset, overrides, (data, model) = PHASE20_PATHS[path]
+    cfg = config1_train_config() if preset == "config1" else get_preset(preset)
+    cfg = apply_overrides(cfg, overrides)
+    return cfg.replace(train=dataclasses.replace(cfg.train, steps_per_call=1),
+                       mesh=dataclasses.replace(cfg.mesh, data=data, model=model))
+
+
+def host_tree(params):
+    return {k: v.detach().cpu() for k, v in params.items()}
+
+
+def tp_rank_steps(job, rank):
+    """A rank's share of phase 20 (a-c): each path's step on this rank's
+    shard and rows of the global batches, the first step counted (every
+    kernel call recorded), the others timed; writes the metrics, launches,
+    routes and times as JSON, and the gathered state's parameters and first
+    moments after the first step, this rank's shards and the recorded calls
+    with torch.save."""
+    from action_conditioned_gans_tpu_torch.ops import api
+    from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
+    from action_conditioned_gans_tpu_torch.parallel.mesh import batch_slice, make_mesh
+    from action_conditioned_gans_tpu_torch.parallel.tp import place_state, whole_state
+    from action_conditioned_gans_tpu_torch.train import init_state
+
+    results = {}
+    for path in job["paths"]:
+        cfg = phase20_config(path)
+        torch.backends.cudnn.enabled = "f32" not in path
+        mesh = make_mesh(cfg.mesh, device="cuda")
+        step = make_dp_train_step(cfg, mesh)
+        state = place_state(init_state(cfg, torch.Generator().manual_seed(0), device="cuda"), mesh)
+        out = dict(metrics=[], step_ms=[])
+        for i, batch in enumerate(phase19_batches(cfg, PHASE20_STEPS)):
+            local = batch_slice({k: v.cuda() for k, v in batch.items()}, mesh)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if i == 0:
+                reset_launches()
+                with recorded_calls() as rec:
+                    state, m = step(state, local)
+                    torch.cuda.synchronize()
+                out["launches"], out["routes"] = read_launches(), dict(api.ROUTES)
+                first_mu = first_moments(whole_state(state, cfg, mesh))
+            else:
+                start.record()
+                state, m = step(state, local)
+                end.record()
+                torch.cuda.synchronize()
+                out["step_ms"].append(start.elapsed_time(end))
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+        full = whole_state(state, cfg, mesh)
+        torch.save({"g_params": host_tree(full.g_params), "d_params": host_tree(full.d_params),
+                    "first_mu": first_mu, "calls": rec,
+                    "shard": {t: host_tree(getattr(state, t)) for t in ("g_params", "d_params")}},
+                   os.path.join(job["dir"], f"{path.replace(' ', '_')}.rank{rank}.pt"))
+        results[path] = out
+        del state, full, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.enabled = True
+    return results
+
+
+def tp_rank_train(job, rank):
+    """A rank's share of phase 20 (d): ``train`` runs in turn on the 1x2
+    mesh (phase 12's arguments with ``mesh.model=2``, cudnn.deterministic),
+    each with the counts set to 0 just before it and read just after, its
+    standard output kept; after the last, rank 0 writes the state gathered
+    over the model group."""
+    import contextlib
+
+    from action_conditioned_gans_tpu_torch import cli
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.ops import api
+    from action_conditioned_gans_tpu_torch.parallel.mesh import make_mesh
+    from action_conditioned_gans_tpu_torch.parallel.tp import whole_state
+    from action_conditioned_gans_tpu_torch.train.loop import train
+
+    torch.backends.cudnn.deterministic = True
+    results = []
+    for argv in job["runs"]:
+        args = cli.build_parser().parse_args(["train", *argv])
+        cfg = cli.apply_overrides(get_preset(args.preset), args.overrides)
+        reset_launches()
+        tee = _Tee()
+        with contextlib.redirect_stdout(tee):
+            state = train(cfg, max_steps=args.steps, workdir=args.workdir, device="cuda:0")
+        torch.cuda.synchronize()
+        results.append(dict(launches=read_launches(), routes=dict(api.ROUTES),
+                            stdout="".join(tee.parts)))
+    full = whole_state(state, cfg, make_mesh(cfg.mesh, device="cuda:0"))
+    if rank == 0:
+        torch.save({"g_params": host_tree(full.g_params), "d_params": host_tree(full.d_params)},
+                   os.path.join(job["dir"], "tp-train-gathered.pt"))
+    return results
+
+
+def phase20_steps(smi, tmp, results):
+    """Phase 20 (a-c): PHASE20_PATHS on two gloo ranks (the 1x2 mesh) and
+    on four (2x2), all on cuda:0, for PHASE20_STEPS steps (``results``:
+    each path's ranks' results, in rank order), against the
+    one-rank step on the whole batch here: bfloat16 losses within 3e-2
+    relative; float32 (cuDNN off, D's lr 0) the gathered first moments
+    (the averaged gradients), G's and D's, within 1e-4 normwise and the
+    losses within 2e-4 relative, or twice the one-rank step's own spread
+    over reordered clips where larger (phase 19's bars). The replicated
+    parameters bit-equal on every rank, a shard bit-equal on the ranks of
+    its model index; each rank's first step counted against
+    EXPECTED[path]. Returns the launches by path and rank, and the recorded
+    kernel calls of every rank's counted step."""
+    from action_conditioned_gans_tpu_torch.parallel.tp import tp_param_spec
+
+    launches, calls = {}, {"conv": [], "norm": [], "gn_bwd": []}
+    for path, out in results.items():
+        cfg, f32 = phase20_config(path), "f32" in path
+        world = cfg.mesh.data * cfg.mesh.model
+        name = path.replace(" ", "_")
+        saved = [torch.load(os.path.join(tmp, f"{name}.rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+        same = {"replicated": True, "shard": True}
+        for r in range(world):
+            for tree in ("g_params", "d_params"):
+                for k, v in saved[r]["shard"][tree].items():
+                    kind = ("replicated" if tp_param_spec(tuple(saved[0][tree][k].shape),
+                                                          cfg.mesh.model) is None else "shard")
+                    peer = 0 if kind == "replicated" else r % cfg.mesh.model
+                    same[kind] &= torch.equal(v, saved[peer]["shard"][tree][k])
+        same_rep, same_shard = same["replicated"], same["shard"]
+        check(same_rep and same_shard, f"{path}: the ranks' replicated parameters or shards differ")
+        for r, res in enumerate(out):
+            check_runs(f"{path} rank {r} of {world}", res["launches"], {path: 1},
+                       routes=res["routes"])
+            launches[f"{path} rank {r}"] = res["launches"]
+            for kind in calls:
+                calls[kind] += saved[r]["calls"][kind]
+        want, want_mu, state = one_rank_steps(cfg, cudnn=not f32)
+        got = out[0]["metrics"]
+        loss_rel = max(abs(got[i][k] - w[k]) / abs(w[k]) for i, w in enumerate(want) for k in w)
+
+        def joined(moments, net):
+            return {net: torch.cat([moments[k].reshape(-1) for k in sorted(want_mu)
+                                    if k.startswith(net)])}
+
+        nets = {net: normwise(joined(saved[0]["first_mu"], net), joined(want_mu, net))[net]
+                for net in ("g_opt", "d_opt")}
+        diffs = [(saved[0][t][k] - getattr(state, t)[k].cpu()).abs()
+                 for t in ("g_params", "d_params") for k in saved[0][t]]
+        spread, loss_spread = {"g_opt": 0.0, "d_opt": 0.0}, 0.0
+        reordered = f32 and (max(nets.values()) > 1e-4 or loss_rel > 2e-4)
+        if reordered:
+            # The one-rank step's own spread, needed only past the direct bars.
+            b = cfg.train.batch_size
+            for order in (torch.arange(b - 1, -1, -1), torch.arange(b).roll(b // 2),
+                          torch.randperm(b, generator=torch.Generator().manual_seed(19))):
+                r_losses, r_mu, _ = one_rank_steps(cfg, cudnn=False, order=order)
+                for net in spread:
+                    spread[net] = max(spread[net], normwise(joined(r_mu, net),
+                                                            joined(want_mu, net))[net])
+                loss_spread = max([loss_spread] + [abs(rl[k] - w[k]) / abs(w[k])
+                                                   for rl, w in zip(r_losses, want) for k in w])
+        line = dict(path=path, mesh=[cfg.mesh.data, cfg.mesh.model],
+                    global_batch=cfg.train.batch_size, steps=PHASE20_STEPS, cudnn=not f32,
+                    replicated_bit_identical=same_rep, shards_bit_identical=same_shard,
+                    max_rel_loss_diff_vs_one_rank=loss_rel, normwise_first_moment_diff=nets,
+                    **(dict(reordered_clips_normwise=spread, reordered_clips_loss_rel=loss_spread)
+                       if reordered else {}),
+                    max_abs_param_diff_vs_one_rank=max(float(d.max()) for d in diffs),
+                    rank_step_ms=[res["step_ms"] for res in out],
+                    note=f"a correctness run: {world} processes share one card, gloo moves "
+                         "every gather through the host", card=smi)
+        say("tp gloo " + json.dumps(line))
+        del state
+        torch.cuda.empty_cache()
+        if f32:
+            for net, d in nets.items():
+                check(d <= max(1e-4, 2 * spread[net]), f"{path}: {net} first moments {d:.3e} "
+                      f"(normwise) from the one-rank step's; its own spread {spread[net]:.3e}")
+            check(loss_rel <= max(2e-4, 2 * loss_spread), f"{path}: losses {loss_rel:.3e} from "
+                  f"the one-rank step's; its own spread {loss_spread:.3e}")
+        else:
+            check(loss_rel <= 3e-2, f"{path}: losses {loss_rel:.3e} from the one-rank step's")
+    return launches, calls
+
+
+def phase20_train_runs(tmp):
+    """Phase 20 (d)'s `train` runs: 16 steps, resumed to 32; 32 uninterrupted."""
+    whole, resumed = os.path.join(tmp, "tp-whole"), os.path.join(tmp, "tp-resumed")
+    return [[*PHASE20_LOOP_ARGS, "--workdir", resumed, "--steps", "16"],
+            [*PHASE20_LOOP_ARGS, "--workdir", resumed, "--steps", "32"],
+            [*PHASE20_LOOP_ARGS, "--workdir", whole, "--steps", "32"]]
+
+
+def phase20_train(smi, tmp, ranks):
+    """Phase 20 (d): `train` on the 1x2 mesh (two gloo ranks on cuda:0,
+    phase 12's arguments, cudnn.deterministic): 32 steps uninterrupted, and
+    16 resumed to 32, bit for bit; the step-32 checkpoint equals the state
+    the ranks gather, bit for bit, and is restored by a one-rank
+    ``Predictor.from_checkpoint`` (its generator bit for bit the
+    checkpoint's) and by a one-rank `train` resume to step 48 (counted).
+    Rank 0 alone prints; each rank's launches counted. ``ranks``: each
+    rank's results of the runs. Returns the launches by run and rank."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+
+    whole, resumed = os.path.join(tmp, "tp-whole"), os.path.join(tmp, "tp-resumed")
+    launches = {}
+    for i, steps in enumerate((16, 16, 32)):
+        lead = ranks[0][i]["stdout"]
+        lines = metric_lines(lead)
+        evals = sum("eval_l2" in r for r in lines)
+        for r, runs_of_rank in enumerate(ranks):
+            res = runs_of_rank[i]
+            runs_of = {"config1 step tp2": steps, **({"config1 serving": evals} if r == 0 else {})}
+            check_runs(f"config1 tp2 train loop run {i} rank {r}", res["launches"], runs_of,
+                       routes=res["routes"])
+            launches[f"config1 tp2 train loop run {i} rank {r}"] = res["launches"]
+            if r:
+                check("[acgan]" not in res["stdout"] and not metric_lines(res["stdout"]),
+                      f"rank {r} printed: {res['stdout'][-1000:]}")
+        check(lines and all(np.isfinite(v) for row in lines for v in row.values()),
+              f"run {i}: rank 0's metric lines {lines}")
+        check("mesh data=1 model=2" in lead, f"run {i} did not run on the 1x2 mesh")
+    check("resumed from checkpoint at step 16" in ranks[0][1]["stdout"],
+          "the second run did not resume")
+    same, max_diff, where = compare_states(final_params(resumed, 32), final_params(whole, 32))
+    ckpt = final_params(whole, 32)
+    gathered = torch.load(os.path.join(tmp, "tp-train-gathered.pt"), weights_only=True)
+    same_gathered = all(torch.equal(v, ckpt[f"{t}/{k}"]) for t in ("g_params", "d_params")
+                        for k, v in gathered[t].items())
+    cfg = apply_overrides(get_preset("config1"), PHASE20_LOOP_ARGS[3::2])
+    served = Predictor.from_checkpoint(cfg, whole, device="cuda")
+    same_served = all(torch.equal(v.cpu(), ckpt[f"g_params/{k}"])
+                      for k, v in served.generator.state_dict().items())
+    (p_args, _) = serving_inputs(cfg, 8, 1, 1, seed=20)
+    served_ok = bool(torch.isfinite(served.predict(*p_args).float()).all())
+    one = os.path.join(tmp, "tp-to-one")
+    shutil.copytree(whole, one)
+    reset_launches()
+    out = run_cli(["train", *LOOP_ARGS, "--set", "train.checkpoint_every=16", "--workdir", one,
+                   "--steps", "48", "--device", "cuda:0"])
+    launches["config1 one-rank resume of a tp2 checkpoint"] = read_launches()
+    check_runs("config1 one-rank resume of a tp2 checkpoint",
+               launches["config1 one-rank resume of a tp2 checkpoint"], {"config1 step": 16})
+    resumed_one = "resumed from checkpoint at step 32" in out
+    say(f"tp2 train: 16 + 16 steps against 32 uninterrupted, cudnn.deterministic: bit-identical "
+        f"{same}, max |d| {max_diff:.3e} at {where}; checkpoint = gathered state {same_gathered}; "
+        f"one-rank Predictor.from_checkpoint bit for bit {same_served}, predicts finite "
+        f"{served_ok}; one-rank `train` resumed at 32 {resumed_one}; checkpoints "
+        f"{checkpoint_steps(whole)} / {checkpoint_steps(resumed)} ({smi})")
+    check(same, f"the resumed tp2 run differs: {max_diff:.3e} at {where}")
+    check(same_gathered and same_served and served_ok and resumed_one,
+          "the tp2 checkpoint is not the gathered state, or does not restore on one rank")
+    check(checkpoint_steps(whole) == [16, 32], f"checkpoints {checkpoint_steps(whole)}")
+    return launches
+
+
+def phase20_serving(smi):
+    """Phase 20 (e): ``Predictor`` over the 1x2 grid [[cuda:0, cuda:0]]
+    (each sharded layer's two channel shards computed in turn, concatenated)
+    against one device, config5 (256x256): predict B=32 and rollout T=30
+    B=8 in bfloat16, counted, every kernel call recorded. The predict, and
+    every generator call of the rollout fed the one-device rollout's frames,
+    within 3e-2 (the shards' kernels round otherwise than the whole
+    layers'). The free-running bfloat16 rollout compounds those roundings
+    over 30 steps, as the one-device bfloat16 rollout compounds its own
+    against float32: its distance from the float32 rollout is held within
+    twice the one-device one's (or 3e-2). In float32 (B=2) predict and a
+    T=3 rollout within 1e-4; the T=30 float32 rollout's difference is
+    printed (rounding compounds there too). Returns (launches, recorded
+    calls)."""
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+
+    grid = [["cuda:0", "cuda:0"]]
+    c5 = get_preset("config5")
+    params = seeded_params(c5, seed=5)
+    one = Predictor(c5, params, device="cuda")
+    tp2 = one.with_mesh(grid)
+    p_args, r_args = serving_inputs(c5, 32, 30, 8, seed=20)
+    reset_launches()
+    with recorded_calls() as rec:
+        got_p, got_r = tp2.predict(*p_args), tp2.rollout(*r_args)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    check_runs("config5 tp2 serving", launches, {"config5 tp2 serving": 1 + 30})
+    e_p = float((got_p.float() - one.predict(*p_args).float()).abs().max())
+    want_r = one.rollout(*r_args)
+    e_r = float((got_r.float() - want_r.float()).abs().max())
+    frame0, actions, states = r_args
+    e_step = 0.0
+    for t in range(actions.shape[1]):
+        x = torch.as_tensor(frame0) if t == 0 else want_r[:, t - 1].float().cpu()
+        args = (x, actions[:, t], None if states is None else states[:, t])
+        e_step = max(e_step, float((tp2.predict(*args).float() - want_r[:, t].float())
+                                   .abs().max()))
+    c5f = c5.replace(model=dataclasses.replace(c5.model, compute_dtype="float32"))
+    f32 = Predictor(c5f, params, device="cuda")
+    f32_r = f32.rollout(*r_args).float()
+    drift_one = float((want_r.float() - f32_r).abs().max())
+    drift_tp = float((got_r.float() - f32_r).abs().max())
+    args, roll = serving_inputs(c5f, 2, 30, 2, seed=21)
+    f32_grid = f32.with_mesh(grid)
+    e_f32 = max(float((f32_grid.predict(*args) - f32.predict(*args)).abs().max()),
+                float((f32_grid.rollout(roll[0], roll[1][:, :3], None) -
+                       f32.rollout(roll[0], roll[1][:, :3], None)).abs().max()))
+    # Not held: float32 rounding compounds over 30 steps too.
+    e_f32_t30 = float((f32_grid.rollout(*roll) - f32.rollout(*roll)).abs().max())
+    ms = {}
+    for label, p in (("one device", one), ("1x2 grid", tp2)):
+        ms[label] = cuda_time_ms(lambda p=p: p.predict(*p_args), 5)
+    say(f"tp serving over {grid}: config5 bf16 predict B=32 max|d| {e_p:.3e}; rollout T=30 B=8: "
+        f"each generator call on the one-device frames max|d| {e_step:.3e} (bar 3e-2), free "
+        f"running max|d| {e_r:.3e}, from the float32 rollout {drift_tp:.3e} against the "
+        f"one-device bf16 rollout's {drift_one:.3e}; float32 B=2 predict + T=3 rollout max|d| "
+        f"{e_f32:.3e} (bar 1e-4), T=30 {e_f32_t30:.3e}; predict ms {ms} (a correctness run: both "
+        f"shards on one card) ({smi})")
+    check(e_p <= 3e-2 and e_step <= 3e-2,
+          f"config5 tp2 serving differs: predict {e_p:.3e}, rollout steps {e_step:.3e}")
+    check(drift_tp <= max(3e-2, 2 * drift_one),
+          f"the tp2 bf16 rollout drifts {drift_tp:.3e} from float32, one device {drift_one:.3e}")
+    check(e_f32 <= 1e-4, f"config5 float32 tp2 serving differs by {e_f32:.3e}")
+    return launches, rec
+
+
+def phase20(smi, totals):
+    """Phase 20: channel tensor parallelism. Returns the launches of its
+    counted runs; folds the shard-shaped calls' parity into ``totals``."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import build
+
+    t_phase = time.perf_counter()
+    say(f"phase 20: channel tensor parallelism ({smi})")
+    launches = {}
+    scratch = os.path.dirname(build.BUILD_DIR)
+    with tempfile.TemporaryDirectory(prefix="phase20-", dir=scratch) as tmp:
+        # One spawn of two ranks for the 1x2 steps and the `train` runs, one of
+        # four for the 2x2 step.
+        paths = {w: [p for p, (_, _, (d, m)) in PHASE20_PATHS.items() if d * m == w]
+                 for w in (2, 4)}
+        two = run_dp_ranks({"jobs": [
+            {"mode": "tp_steps", "dir": tmp, "paths": paths[2]},
+            {"mode": "tp_train", "dir": tmp, "runs": phase20_train_runs(tmp)}]}, tmp, "tp-1x2",
+            world=2, flag="--tp-rank")
+        four = run_dp_ranks({"jobs": [{"mode": "tp_steps", "dir": tmp, "paths": paths[4]}]},
+                            tmp, "tp-2x2", world=4, flag="--tp-rank")
+        results = {p: [o["results"][0][p] for o in out]
+                   for out, ps in ((two, paths[2]), (four, paths[4])) for p in ps}
+        step_launches, calls = phase20_steps(smi, tmp, results)
+        launches.update(step_launches)
+        launches.update(phase20_train(smi, tmp, [o["results"][1] for o in two]))
+    serving, rec = phase20_serving(smi)
+    launches["config5 tp2 serving"] = serving
+    for kind in calls:
+        calls[kind] += rec[kind]
+    # Every distinct shard-shaped call of kernels 1-4 against its plain version.
+    phase_train_conv_parity(calls["conv"], totals)
+    phase_train_norm_parity(calls["norm"], totals["group_norm_act"])
+    phase_gn_bwd_call_parity(calls["gn_bwd"], "phase 20", totals["gn_act_bwd"])
+    say(f"phase 20 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -3750,6 +4207,8 @@ def main() -> int:
     lap("phase 18")
     launches.update(phase19(smi))
     lap("phase 19")
+    launches.update(phase20(smi, totals))
+    lap("phase 20")
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 
@@ -3775,6 +4234,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp-rank"]:
+    if sys.argv[1:2] in (["--dp-rank"], ["--tp-rank"]):
         sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

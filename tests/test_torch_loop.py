@@ -335,16 +335,16 @@ def test_cadence_matches_the_jax_loop(tmp_path, capsys):
 
 def test_unported_sources_and_meshes_are_refused(tmp_path):
     """A file source without files is refused before a step; so is a mesh
-    with a model axis (channel tensor parallelism, ROADMAP Queue 1 item 8)
-    and a data axis that the process group does not hold (data parallelism
-    runs one process per device: tests/test_torch_multihost.py). data=-1
-    and data=1 run on the one device."""
+    whose data x model axes the process group does not fill (a model axis
+    of 2 on one process, a data axis of 2: data and channel parallelism run
+    one process per device, tests/test_torch_multihost.py and
+    tests/test_torch_tp.py). data=-1 and data=1 run on the one device."""
     cfg = loop_config(tmp_path)
     # The file sources train (tests/test_torch_file_train.py).
     tf = cfg.replace(data=dataclasses.replace(cfg.data, source="tfrecord_native"))
     with pytest.raises(ValueError, match="data_dir"):
         train(tf, max_steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="mesh data=1 x model=2 needs a process group of 2"):
         train(cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=1, model=2)), max_steps=1,
               device="cpu")
     with pytest.raises(ValueError, match="mesh data=2 needs a process group of 2 ranks"):

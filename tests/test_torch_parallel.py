@@ -241,7 +241,7 @@ def test_make_mesh_without_a_group_is_one_rank():
     assert make_mesh(tcfg.MeshConfig(data=1), device="cpu").data == 1
     with pytest.raises(ValueError, match="mesh data=2 needs a process group of 2 ranks"):
         make_mesh(tcfg.MeshConfig(data=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(ValueError, match="mesh data=1 x model=2 needs a process group of 2"):
         make_mesh(tcfg.MeshConfig(data=1, model=2), device="cpu")
 
 
@@ -276,13 +276,16 @@ def test_each_rank_draws_its_own_randoms():
 
 
 def test_dp_step_refuses_an_indivisible_batch_and_a_model_axis():
+    """An indivisible batch is refused with or without a model axis; a model
+    axis itself is taken (the dp x tp step, tests/test_torch_tp.py)."""
     cfg = port_config(tiny_config(batch_size=3))
     one = make_mesh(cfg.mesh, device="cpu")
     two = dataclasses.replace(one, world=2, data=2)
     with pytest.raises(ValueError, match="must be divisible by the data mesh axis"):
         make_dp_train_step(cfg, two)
-    with pytest.raises(ValueError, match="model=2 > 1"):
-        make_dp_train_step(cfg, dataclasses.replace(one, model=2))
+    with pytest.raises(ValueError, match="must be divisible by the data mesh axis"):
+        make_dp_train_step(cfg, dataclasses.replace(two, world=4, model=2))
+    assert callable(make_dp_train_step(cfg, dataclasses.replace(one, world=2, model=2)))
     cfg = port_config(tiny_config(batch_size=4))
     step = make_dp_train_step(cfg, one)
     with pytest.raises(ValueError, match="got a batch of 2 clips"):

@@ -150,6 +150,52 @@ def test_stats_count_what_was_filled_and_waited():
     assert pf._thread.name == pipeline.FILL_THREAD and not pf._thread.is_alive()
 
 
+class SlowDataset:
+    """A source whose ``batch_at`` takes ``seconds`` (a loaded host parsing a
+    batch); ``close`` records whether the fill thread was still alive."""
+
+    def __init__(self, seconds):
+        self.seconds, self.started = seconds, threading.Event()
+        self.closed_with_fill_alive = None
+
+    def batch_at(self, i):
+        self.started.set()
+        time.sleep(self.seconds)
+        return {"i": np.array(i)}
+
+    def close(self):
+        self.closed_with_fill_alive = any(t.name == pipeline.FILL_THREAD and t.is_alive()
+                                          for t in threading.enumerate())
+
+
+def test_close_waits_for_a_batch_at_in_progress():
+    """A ``batch_at`` that outlasts the 5 s join close used to give up after:
+    close returns only once the fill thread has ended, and closes the source
+    after it."""
+    ds = SlowDataset(5.5)
+    pf = Prefetcher(ds, depth=1)
+    assert ds.started.wait(10)
+    pf.close()
+    assert not pf._thread.is_alive()
+    assert ds.closed_with_fill_alive is False
+    assert not [t for t in threading.enumerate() if t.name == pipeline.FILL_THREAD]
+
+
+def test_close_raises_naming_a_fill_thread_past_its_deadline():
+    """A fill thread alive after ``close_timeout_s`` raises, naming it, and
+    the source is not closed under it; a later close ends cleanly."""
+    ds = SlowDataset(1.5)
+    pf = Prefetcher(ds, depth=1)
+    pf.close_timeout_s = 0.2
+    assert ds.started.wait(10)
+    with pytest.raises(RuntimeError, match=pipeline.FILL_THREAD):
+        pf.close()
+    assert ds.closed_with_fill_alive is None
+    pf.close_timeout_s = 30.0
+    pf.close()
+    assert not pf._thread.is_alive() and ds.closed_with_fill_alive is False
+
+
 class ArrayDataset:
     def batch_at(self, i):
         rng = np.random.RandomState(i)

@@ -22,10 +22,13 @@ the card) with every kernel wrapper recorded.
 """
 
 import collections
+import contextlib
+import dataclasses
 import sys
 
 import pytest
 import torch
+import torch.distributed as dist
 from test_torch_conv_transpose_wgmma import transpose_tile
 from test_torch_conv_wgmma import conv_tile
 
@@ -36,6 +39,10 @@ from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
 from action_conditioned_gans_tpu_torch.ops import api
 from action_conditioned_gans_tpu_torch.ops.common import resolve_groups, same_pad
 from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
+from action_conditioned_gans_tpu_torch.infer import grid_replica
+from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
+from action_conditioned_gans_tpu_torch.parallel.mesh import Mesh
+from action_conditioned_gans_tpu_torch.parallel.tp import shard_state
 from action_conditioned_gans_tpu_torch.train.state import state_from_params
 from action_conditioned_gans_tpu_torch.train.step import make_train_step
 
@@ -110,6 +117,65 @@ def generator_calls(preset, batch):
                 torch.empty(batch, m.state_dim) if m.state_dim else None)
     with torch.no_grad():
         return record(lambda: gen(*args))
+
+
+@contextlib.contextmanager
+def one_rank_of(size):
+    """The collectives of a channel-sharded run seen from rank 0 of every
+    group of ``size`` ranks, on meta tensors (shapes only): a gather makes
+    ``size`` copies of the shard, a reduce changes nothing."""
+    real = {n: getattr(dist, n) for n in ("get_world_size", "get_rank", "all_gather",
+                                          "all_reduce")}
+
+    def all_gather(parts, t, group=None):
+        for p in parts:
+            p.copy_(t)
+
+    dist.get_world_size = lambda group=None: size
+    dist.get_rank = lambda group=None: 0
+    dist.all_gather = all_gather
+    dist.all_reduce = lambda t, op=None, group=None: None
+    try:
+        yield object()
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+
+
+def tp_step_calls(cfg, data, model):
+    """One training step of ``cfg`` by rank 0 of a (``data``, ``model``)
+    mesh on meta tensors: its channel shard of the state and its rows of the
+    global batch (one step a call)."""
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, steps_per_call=1))
+    m, t = cfg.model, cfg.train
+    with META:
+        gen, disc = Generator(m), Discriminator(m)
+    state = shard_state(state_from_params(cfg, gen.state_dict(), disc.state_dict(), device=META),
+                        0, model)
+    b, horizon, s = t.batch_size // data, max(t.rollout_length, 1), m.image_size
+    batch = {"frames": torch.zeros((b, horizon + 1, s, s, m.image_channels), device=META),
+             "actions": torch.zeros((b, horizon, m.action_dim), device=META)}
+    if m.state_dim:
+        batch["states"] = torch.zeros((b, horizon, m.state_dim), device=META)
+    with one_rank_of(model) as group:
+        mesh = Mesh(rank=0, world=data * model, data=data, model=model, device=META,
+                    group=group, data_group=group if data > 1 else None, model_group=group)
+        step = make_dp_train_step(cfg, mesh)
+        return record(lambda: step(state, batch))
+
+
+def grid_generator_calls(preset, batch, columns):
+    """One generator call of ``preset`` at ``batch`` by a row of a serving
+    grid of ``columns`` meta devices (``infer.grid_replica``)."""
+    m = tcfg.get_preset(preset).model
+    with META:
+        gen = Generator(m)
+        s = m.image_size
+        args = (torch.empty(batch, s, s, m.image_channels), torch.empty(batch, m.action_dim),
+                torch.empty(batch, m.state_dim) if m.state_dim else None)
+    row = grid_replica(gen.requires_grad_(False), [META] * columns)
+    with torch.no_grad():
+        return record(lambda: row(*args))
 
 
 def mainloop(c):
@@ -360,3 +426,28 @@ def test_phase19_rank_counts_follow_the_routes(path):
     assert got[0] == want[0] and got[2] == want[2] and got[3] == want[3], got
     assert got[1] == {k: v for k, v in want[1].items() if sum(v.values())}, got[1]
     assert other_routes(routes) == chip_smoke.EXPECTED_ROUTES.get(path, {})
+
+
+@pytest.mark.parametrize("path", sorted(chip_smoke.PHASE20_PATHS))
+def test_phase20_rank_counts_follow_the_routes(path):
+    """What one rank of phase 20's (data, model) meshes launches a step on
+    its channel shard and rows of the batch: EXPECTED[path] (each shard
+    routed as a layer of its width); every rank's shards have rank 0's
+    shapes."""
+    cfg = chip_smoke.phase20_config(path)
+    calls, routes = tp_step_calls(cfg, cfg.mesh.data, cfg.mesh.model)
+    got, want = counts(calls, routes), chip_smoke.EXPECTED[path]
+    assert got[0] == want[0] and got[2] == want[2] and got[3] == want[3], got
+    assert got[1] == {k: v for k, v in want[1].items() if sum(v.values())}, got[1]
+    assert other_routes(routes) == chip_smoke.EXPECTED_ROUTES.get(path, {})
+
+
+def test_phase20_grid_serving_counts_follow_the_routes():
+    """A generator call of a 1x2 serving grid's row at config5: each sharded
+    layer's kernels once a column, dec_0 whole (EXPECTED["config5 tp2
+    serving"])."""
+    calls, routes = grid_generator_calls("config5", 8, 2)
+    got, want = counts(calls, routes), chip_smoke.EXPECTED["config5 tp2 serving"]
+    assert got[0] == want[0] and got[2] == want[2], got
+    assert got[1] == {k: v for k, v in want[1].items() if sum(v.values())}, got[1]
+    assert other_routes(routes) == chip_smoke.EXPECTED_ROUTES.get("config5 tp2 serving", {})

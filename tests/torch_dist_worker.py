@@ -1,9 +1,11 @@
 """One rank of a ``gloo`` process group on the CPU, for the port's
-data-parallel tests (tests/test_torch_parallel.py, test_torch_multihost.py).
+data- and tensor-parallel tests (tests/test_torch_parallel.py,
+test_torch_multihost.py, test_torch_tp.py).
 
     python -m tests.torch_dist_worker RANK WORLD INIT_FILE JOB.json
 
-``JOB.json`` names a ``mode`` and its inputs:
+``JOB.json`` names a ``mode`` and its inputs (or holds ``jobs``, a list of
+such, run in turn):
 
 * ``steps``: for each scenario, the state from ``<dir>/<name>.npz`` (the
   port's state_dicts under ``g/`` and ``d/``), the global batches of each
@@ -11,6 +13,11 @@ data-parallel tests (tests/test_torch_parallel.py, test_torch_multihost.py).
   run through ``make_dp_train_step`` on the rank's rows; writes the
   parameters, moments, metrics and the all-reduce sizes issued by each step
   to ``<dir>/<name>.rank<r>.npz``.
+* ``tp_steps``: as ``steps`` on a ``(data, model)`` mesh (``mesh.model`` of
+  the scenario's config): the full state sharded (``parallel.tp``), the
+  global batch's draws (``step<i>/<key>``) given whole; writes the gathered
+  parameters, this rank's shards of the parameters and first moments, and
+  the metrics to ``<dir>/<name>.w<world>.rank<r>.npz``.
 * ``train``: for each of ``runs``, ``train.loop.train`` of its ``config``
   (a port config as a dict) to ``steps`` in ``workdir``, rank
   ``sigterm_rank`` (if given) sending itself SIGTERM after its
@@ -117,6 +124,70 @@ def _steps(job: dict, rank: int) -> None:
         np.savez(os.path.join(job["dir"], f"{name}.rank{rank}.npz"), **out)
 
 
+def leaves(state):
+    """Every tensor of a TrainState, in a fixed order."""
+    for tree in ("g_params", "d_params", "g_ema"):
+        yield from (getattr(state, tree) or {}).values()
+    for tree in ("g_opt", "d_opt"):
+        yield from getattr(state, tree).mu.values()
+        yield from getattr(state, tree).nu.values()
+
+
+def _tp_steps(job: dict, rank: int) -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from action_conditioned_gans_tpu_torch.config import config_from_dict
+    from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
+    from action_conditioned_gans_tpu_torch.parallel.mesh import batch_slice, make_mesh
+    from action_conditioned_gans_tpu_torch.parallel.tp import gather_state, shard_state
+    from action_conditioned_gans_tpu_torch.train.state import state_from_params
+    from action_conditioned_gans_tpu_torch.train.step import StepRandoms
+
+    world = dist.get_world_size()
+    for name, cfg_dict in job["scenarios"].items():
+        cfg = config_from_dict(cfg_dict)
+        with np.load(os.path.join(job["dir"], f"{name}.npz")) as z:
+            tensors = {k: torch.from_numpy(z[k]) for k in z.files}
+        mesh = make_mesh(cfg.mesh, device="cpu")
+        state = shard_state(state_from_params(
+            cfg, {k[2:]: v for k, v in tensors.items() if k.startswith("g/")},
+            {k[2:]: v for k, v in tensors.items() if k.startswith("d/")}, device="cpu"),
+            mesh.model_index, mesh.model)
+        step = make_dp_train_step(cfg, mesh, seed=job["seed"])
+        out = {}
+        for i in range(int(tensors["n_steps"])):
+            batch = {k.split("/")[1]: v for k, v in tensors.items() if k.startswith(f"batch{i}/")}
+            prefix = f"step{i}/"
+            randoms = StepRandoms(**{k[len(prefix):]: v for k, v in tensors.items()
+                                     if k.startswith(prefix)})
+            state, metrics = step(state, batch_slice(batch, mesh), randoms)
+            out.update({f"metrics/step{i}/{k}": v.numpy() for k, v in metrics.items()})
+        for tree in ("g_params", "d_params"):
+            out.update({f"shard/{tree}/{k}": v.numpy() for k, v in getattr(state, tree).items()})
+        for tree in ("g_opt", "d_opt"):
+            out.update({f"shard/{tree}/mu/{k}": v.float().numpy()
+                        for k, v in getattr(state, tree).mu.items()})
+        full = gather_state(state, cfg, mesh.model_group)
+        for tree in ("g_params", "d_params"):
+            out.update({f"{tree}/{k}": v.numpy() for k, v in getattr(full, tree).items()})
+        # Round trips: gathered and sharded again, the state comes back bit
+        # for bit, also with bfloat16 moments.
+        bf16 = dataclasses.replace(state, **{
+            t: dataclasses.replace(getattr(state, t), **{
+                m: {k: v.to(torch.bfloat16) for k, v in getattr(getattr(state, t), m).items()}
+                for m in ("mu", "nu")}) for t in ("g_opt", "d_opt")})
+        for label, st in (("float32", state), ("bfloat16", bf16)):
+            back = shard_state(gather_state(st, cfg, mesh.model_group), mesh.model_index,
+                               mesh.model)
+            out[f"round_trip/{label}"] = np.array(all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(leaves(back), leaves(st))))
+        np.savez(os.path.join(job["dir"], f"{name}.w{world}.rank{rank}.npz"), **out)
+
+
 def _train(job: dict, rank: int) -> None:
     import signal
 
@@ -157,7 +228,8 @@ def main(argv) -> int:
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=90))
     try:
-        {"steps": _steps, "train": _train}[job["mode"]](job, rank)
+        for part in job.get("jobs", [job]):  # a list of jobs runs in turn
+            {"steps": _steps, "tp_steps": _tp_steps, "train": _train}[part["mode"]](part, rank)
     finally:
         dist.destroy_process_group()
     return 0
