@@ -30,7 +30,9 @@ Inputs are float32; outputs are in the model's compute dtype, as the live
 ``infer.Predictor``'s are. ``AotPredictor(path, mesh=devices)`` serves
 data-parallel as the live predictor does: the programs loaded once per
 distinct device, the batch split by ``infer.shard_batches``, the outputs
-gathered on the first device.
+gathered on the first device; a batch-norm model (``meta.json``'s
+``model_config``) has each batch served whole on the first device, since
+its moments are the whole batch's (``infer.serves_whole``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from action_conditioned_gans_tpu_torch.infer import (
     model_inputs,
     rollout_scan,
     run_sharded,
+    serves_whole,
 )
 from action_conditioned_gans_tpu_torch.ops.kernels import library  # noqa: F401 (registers acgan::)
 
@@ -139,13 +142,13 @@ class AotPredictor:
     ``predict`` / ``rollout`` take the live ``infer.Predictor``'s arguments
     and give its outputs; any batch size works (with ``mesh``, any multiple
     of its length). The programs run on ``device`` (cuda unless another is
-    given), or on each device of ``mesh``, wherever they were exported.
+    given), or on each device of ``mesh``, wherever they were exported; a
+    batch-norm model's batch whole on the mesh's first device.
     """
 
     def __init__(self, path: str, device=None, mesh: Optional[Sequence] = None):
         self.mesh = mesh_devices(mesh, device)
         self.device = self.mesh[0] if self.mesh else resolve_device(device)
-        devices = list(dict.fromkeys(self.mesh or [self.device]))
         with zipfile.ZipFile(path) as z:
             self.meta = json.loads(z.read(_META).decode())
             if self.meta.get("format_version") != FORMAT_VERSION:
@@ -153,6 +156,10 @@ class AotPredictor:
                     f"unsupported artifact format {self.meta.get('format_version')!r} "
                     f"(this loader speaks {FORMAT_VERSION})"
                 )
+            self.cfg = Config(model=ModelConfig(**self.meta["model_config"]))
+            # A batch served whole runs on the first device alone.
+            devices = ([self.device] if serves_whole(self.cfg.model)
+                       else list(dict.fromkeys(self.mesh or [self.device])))
 
             def load(name):
                 """The program ``name`` on each device."""
@@ -163,14 +170,14 @@ class AotPredictor:
             self._predict = load(_PREDICT)
             self._rollouts = {int(t): load(_ROLLOUT_T.format(t=t))
                               for t in self.meta["rollout_lengths"]}
-        self.cfg = Config(model=ModelConfig(**self.meta["model_config"]))
         self.state_dim = int(self.meta["state_dim"])
         self.rollout_lengths = sorted(self._rollouts)
 
     def _run(self, programs, args: dict) -> torch.Tensor:
         """The program on this predictor's device, or on each mesh device's
-        share of the batch."""
-        if self.mesh is None:
+        share of the batch (the whole batch on the first where
+        ``infer.serves_whole``)."""
+        if self.mesh is None or serves_whole(self.cfg.model):
             return programs[self.device](**args)
         names = list(args)
         return run_sharded(lambda program, *a: program(**dict(zip(names, a))), programs,

@@ -4,7 +4,9 @@ configs|serve|train|bench|export|sample|eval|make-data|doctor|profile-report``.
 ``train`` trains a preset on synthetic clips made on the device, or on
 TFRecord clips (``--set data.source=tfrecord_native --set
 data.data_dir=DIR``), with JSON metric lines, checkpoints under ``--workdir``
-and resume; ``bench`` prints one JSON line for the preset's training step.
+and resume; ``bench`` prints one JSON line for the preset's training step,
+or with ``--mode infer`` / ``--mode serving`` for its generator alone or a
+whole rollout request (live against the AOT program; ``bench.py``).
 ``make-data`` writes seeded synthetic clips as BAIR-schema TFRecords.
 ``export`` writes what a checkpoint holds as a generator ``.npz`` archive or,
 with ``--format pt2``, as an AOT artifact (``aot.py``); ``sample`` writes
@@ -94,6 +96,14 @@ def build_parser() -> argparse.ArgumentParser:
                    "eval: the checkpoints to read")
     p.add_argument("--steps", type=int, default=None,
                    help="train: total steps; bench: steps behind the timed windows")
+    p.add_argument("--mode", choices=["train", "infer", "serving"], default="train",
+                   help="bench: the training step (default); the generator alone over an "
+                   "input bank and a rollout (infer); a whole rollout request, live against "
+                   "the AOT program (serving). The batch is train.batch_size, T the one "
+                   "--rollout-length or max(train.rollout_length, 1)")
+    p.add_argument("--bank", type=int, default=32, metavar="K",
+                   help="bench --mode infer: generator applications a timed call, each on "
+                   "its own input")
     p.add_argument("--no-resume", action="store_true", help="train: ignore checkpoints")
     p.add_argument("--profile-steps", type=int, default=0,
                    help="train: a torch.profiler trace of N steps into <workdir>/profile")
@@ -115,7 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "the AOT program through torch.export (aot.AotPredictor)")
     p.add_argument("--rollout-length", type=_rollout_lengths, default=[], metavar="T[,T...]",
                    help="export --format pt2: also export T-step rollout programs, one per "
-                   "horizon")
+                   "horizon; bench --mode infer / serving: the rollout's T")
     p.add_argument("--artifact", default=None,
                    help="serve: a generator .npz archive or an AOT artifact; omitted = restore "
                    "the latest checkpoint from --workdir")
@@ -189,6 +199,11 @@ def main(argv=None) -> int:
     if args.workdir:
         cfg = dataclasses.replace(cfg, workdir=args.workdir)
     cfg = apply_overrides(cfg, args.overrides)
+    if args.command == "bench" and args.mode != "train":
+        if args.multihost:
+            parser.error(f"bench --mode {args.mode} runs on one device: drop --multihost")
+        if len(args.rollout_length) > 1:
+            parser.error(f"bench --mode {args.mode} takes one --rollout-length")
     with process_group(args):
         return _run(parser, args, cfg)
 
@@ -201,9 +216,15 @@ def _run(parser, args, cfg: Config) -> int:
               profile_steps=args.profile_steps, device=args.device)
         return 0
     if args.command == "bench":
-        from action_conditioned_gans_tpu_torch.bench import run_bench
+        from action_conditioned_gans_tpu_torch import bench
 
-        line = run_bench(cfg, steps=args.steps or 30, device=args.device)
+        horizon = args.rollout_length[0] if args.rollout_length else None
+        if args.mode == "infer":
+            line = bench.run_infer_bench(cfg, rollout=horizon, k=args.bank, device=args.device)
+        elif args.mode == "serving":
+            line = bench.run_serving_bench(cfg, rollout=horizon, device=args.device)
+        else:
+            line = bench.run_bench(cfg, steps=args.steps or 30, device=args.device)
         if not args.multihost or int(os.environ["RANK"]) == 0:
             print(json.dumps(line), flush=True)
         return 0

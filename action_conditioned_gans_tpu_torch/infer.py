@@ -17,7 +17,11 @@ single-controller GSPMD serving does: each row serves its share of the
 batch; in a row, each column's device holds its shard of every layer that
 the model axis shards (``parallel.tp.tp_param_spec``, the training rule)
 and computes those channels, and the row's first device concatenates them
-and runs the replicated layers (:func:`grid_replica`).
+and runs the replicated layers (:func:`grid_replica`). A batch-norm model
+(``model.norm="batch"``) normalises with its whole batch's moments, so a
+mesh serves each of its batches whole on the grid's first row, whose
+columns still shard channels (the moments are per channel): the
+reference's GSPMD function exactly (:func:`serves_whole`).
 """
 
 from __future__ import annotations
@@ -90,6 +94,13 @@ def run_sharded(call: Callable, replicas: Mapping[Any, Any], devices: Sequence,
     outs = [call(replicas[dev], *share)
             for dev, share in zip(devices, shard_batches(firsts, *args))]
     return torch.cat([o.to(firsts[0]) for o in outs])
+
+
+def serves_whole(m: ModelConfig) -> bool:
+    """Whether a predictor over a mesh serves each batch whole on its first
+    row, unsplit: batch norm takes its moments over the whole batch, which
+    a share of it does not see."""
+    return m.norm == "batch"
 
 
 def _is_row(entry) -> bool:
@@ -198,7 +209,8 @@ class Predictor:
     batch) and the outputs gathered on the first device. A ``(data, model)``
     grid (a sequence of equal rows of devices) splits the batch over its
     rows and, in each row, the sharded layers' channels over its columns
-    (module docstring; :func:`grid_replica`).
+    (module docstring; :func:`grid_replica`). A batch-norm model's batch is
+    served whole on the first row (:func:`serves_whole`).
     """
 
     def __init__(self, cfg: Config, params: Mapping[str, Any], device=None,
@@ -214,7 +226,8 @@ class Predictor:
         gen.load_state_dict(flax_to_state_dict(params))
         gen.eval().requires_grad_(False)
         self._replicas = {}
-        for row in self.grid or [[self.device]]:
+        # A batch served whole runs on the first row alone.
+        for row in (self.grid or [[self.device]])[:1 if serves_whole(cfg.model) else None]:
             if tuple(row) not in self._replicas:
                 self._replicas[tuple(row)] = (grid_replica(gen, row) if len(row) > 1
                                               else copy.deepcopy(gen).to(row[0]))
@@ -226,8 +239,9 @@ class Predictor:
 
     def _call(self, fn: Callable, args: tuple) -> torch.Tensor:
         """``fn(generator, *args)`` on this predictor's device, or on each
-        mesh row's share of the batch."""
-        if self.grid is None:
+        mesh row's share of the batch (the whole batch on the first row
+        where :func:`serves_whole`)."""
+        if self.grid is None or serves_whole(self.cfg.model):
             return fn(self.generator, *args)
         return run_sharded(fn, self._replicas, [tuple(row) for row in self.grid], args)
 

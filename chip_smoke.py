@@ -279,10 +279,26 @@ Phases, each of which fails the run (non-zero exit, no final line):
     call of kernels 1-4 recorded in (a-c) and (e) against its plain version
     at phases 10 and 11's bars. Its times are correctness runs: the ranks
     share one card and gloo moves every gather through the host.
+21. The serving half of ``bench`` (``bench.py``) at the reference's four
+    serving geometries, bfloat16, seeded weights: ``run_infer_bench`` at
+    config1 B=128 (k=32), config2 as the preset is (B=16, T=10) and config5
+    B=8 (k=4, T=30), ``run_serving_bench`` at config1 B=128, T=10; each
+    line printed with the card's name and power limit, its keys the
+    reference line's plus ``peak_memory_gb``, every time and rate finite
+    and positive; counts set to 0 just before each call and read just
+    after, against EXPECTED ("config1 serving" for config1 and config2,
+    "config5 serving") times every generator call of its windows. The
+    config1 T=10 program exported (timed) and its B=128 rollout
+    bit-identical to the live predictor's (counted). ROADMAP Queue 3 fault
+    3: config1 with batch norm in float32 served over [cuda:0, cuda:0]
+    (live and AOT) and [[cuda:0, cuda:0]] within 1e-5 of one device. Then
+    ``bench --mode infer`` and ``--mode serving`` (config1 B=128, T=10) as
+    processes of their own, one JSON line each.
 
 Then a ``kernels`` JSON line (per kernel: launches summed over every main
 path, the config2, config4 and config5 steps, the config1 file, config2 and
-config4 loops, the AOT programs, phase 18's paths and phases 19 and 20's ranks included; max |err|,
+config4 loops, the AOT programs, phase 18's paths, phases 19 and 20's ranks
+and phase 21's benches included; max |err|,
 kernel, plain, bound and library
 times; kernel 4's over the config1 step's calls, and its config3 step's sums
 beside them), then the final line ``{"ok": true, "device": {...}}``.
@@ -4083,6 +4099,199 @@ def phase20(smi, totals):
     return launches
 
 
+# -- phase 21: the serving half of bench ------------------------------------------------
+
+
+# The reference's serving geometries (its root bench.py --infer): run_infer_bench at
+# (EXPECTED path, preset, keywords), then run_serving_bench at config1 B=128, T=10.
+# config2's generator is config1's.
+PHASE21_INFER = (("config1 serving", "config1", dict(batch=128)),
+                 ("config1 serving", "config2", dict()),
+                 ("config5 serving", "config5", dict(batch=8, k=4)))
+PHASE21_SERVING = dict(batch=128, rollout=10)
+# The benches' windows (bench.py's defaults): one warm call, one warm window, then
+# PHASE21_WINDOWS timed windows of PHASE21_PER_WINDOW[mode] calls.
+PHASE21_WINDOWS, PHASE21_PER_WINDOW = 3, {"infer": 8, "serving": 4}
+HEADER_KEYS = ("config", "image_size", "batch_size", "rollout_length", "device",
+               "peak_memory_gb")
+INFER_KEYS = ("infer_step_latency_ms", "infer_fps_per_chip", "rollout_latency_ms",
+              "rollout_fps_per_chip", "barrier_round_trip_ms")
+SERVING_KEYS = ("serving_live_ms", "serving_live_fps", "artifact_bytes", "serving_aot_ms",
+                "serving_aot_fps", "aot_overhead_pct")
+
+
+def check_bench_line(label, line, keys):
+    """A serving bench line: its keys the reference line's plus peak_memory_gb,
+    measured on this card; every time, rate and size finite and > 0, the AOT
+    overhead (a signed share) finite."""
+    check(sorted(line) == sorted([*HEADER_KEYS, *keys]), f"{label}: keys {sorted(line)}")
+    check(line["device"] == torch.cuda.get_device_name(0), f"{label}: device {line['device']}")
+    for k in keys:
+        check(np.isfinite(line[k]) and (k == "aot_overhead_pct" or line[k] > 0),
+              f"{label}: {k} = {line[k]}")
+
+
+def bench_calls(mode):
+    """Calls of the timed function in one bench run of ``mode`` at phase 21's
+    windows."""
+    return 1 + (1 + PHASE21_WINDOWS) * PHASE21_PER_WINDOW[mode]
+
+
+def phase21_bench_calls(smi):
+    """run_infer_bench at the reference's three geometries and
+    run_serving_bench at config1 B=128, T=10, in this process: counts set to
+    0 just before each call and read just after, against EXPECTED times the
+    generator calls of every window of it (a call's k bank applications and
+    T rollout steps; the serving bench's live and AOT rollouts)."""
+    from action_conditioned_gans_tpu_torch.bench import run_infer_bench, run_serving_bench
+    from action_conditioned_gans_tpu_torch.config import get_preset
+
+    launches = {}
+    for path, preset, kw in PHASE21_INFER:
+        cfg = get_preset(preset)
+        reset_launches()
+        line = run_infer_bench(cfg, windows=PHASE21_WINDOWS,
+                               calls_per_window=PHASE21_PER_WINDOW["infer"], device="cuda", **kw)
+        torch.cuda.synchronize()
+        label = f"{preset} bench infer"
+        launches[label] = read_launches()
+        k, t = kw.get("k", 32), line["rollout_length"]
+        say(f"bench infer {json.dumps(line)} ({smi})")
+        check_bench_line(label, line, INFER_KEYS)
+        check((line["batch_size"], t) == (kw.get("batch", cfg.train.batch_size),
+                                         max(cfg.train.rollout_length, 1)), f"{label} geometry")
+        check_launches(label, launches[label], {path: bench_calls("infer") * (k + t)})
+    cfg = get_preset("config1")
+    reset_launches()
+    line = run_serving_bench(cfg, windows=PHASE21_WINDOWS,
+                             calls_per_window=PHASE21_PER_WINDOW["serving"], device="cuda",
+                             **PHASE21_SERVING)
+    torch.cuda.synchronize()
+    launches["config1 bench serving"] = read_launches()
+    say(f"bench serving {json.dumps(line)} ({smi})")
+    check_bench_line("config1 bench serving", line, SERVING_KEYS)
+    rollouts = 2 * bench_calls("serving")  # live and AOT
+    check_launches("config1 bench serving", launches["config1 bench serving"],
+                   {"config1 serving": rollouts * PHASE21_SERVING["rollout"]})
+    return launches
+
+
+def phase21_aot_bits(smi, tmp):
+    """The config1 T=10 program exported (timed) and served at B=128 against
+    the live predictor on the same weights and inputs: bit-identical frames,
+    each run's launches counted."""
+    from action_conditioned_gans_tpu_torch.aot import AotPredictor, export_aot
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+
+    cfg = get_preset("config1")
+    params = seeded_params(cfg, seed=21)
+    path = os.path.join(tmp, "config1_t10.aot")
+    t0 = time.perf_counter()
+    meta = export_aot(cfg, flax_to_state_dict(params), path, rollout_length=10, device="cuda")
+    export_s = time.perf_counter() - t0
+    say(f"export of config1's T=10 program on cuda: {meta['bytes']} bytes in {export_s:.1f} s "
+        f"({smi})")
+    live, aot = Predictor(cfg, params, device="cuda"), AotPredictor(path, device="cuda")
+    _, r_args = serving_inputs(cfg, 128, 10, 128, seed=21)
+    live.rollout(*r_args)
+    aot.rollout(*r_args)
+    torch.cuda.synchronize()
+    launches = {}
+    reset_launches()
+    got_live = live.rollout(*r_args)
+    torch.cuda.synchronize()
+    launches["config1 live rollout T=10 B=128"] = read_launches()
+    check_runs("config1 live rollout T=10 B=128", launches["config1 live rollout T=10 B=128"],
+               {"config1 serving": 10})
+    reset_launches()
+    got_aot = aot.rollout(*r_args)
+    torch.cuda.synchronize()
+    launches["config1 AOT rollout T=10 B=128"] = read_launches()
+    check_program_runs("config1 AOT rollout T=10 B=128",
+                       launches["config1 AOT rollout T=10 B=128"], {"config1 serving": 10})
+    same = torch.equal(got_live, got_aot)
+    say(f"config1 rollout T=10 B=128: AOT program bit-identical to the live predictor: {same}")
+    check(same and tuple(got_aot.shape) == (128, 10, 64, 64, 3),
+          "the AOT rollout differs from the live one")
+    return launches
+
+
+def phase21_cli(smi):
+    """``bench --mode infer`` and ``--mode serving`` as processes of their
+    own: one JSON line on standard output each, the reference line's keys."""
+    base = ["--preset", "config1", "--set", "train.batch_size=128"]
+    for mode, extra, keys in (("infer", [], INFER_KEYS),
+                              ("serving", ["--rollout-length", "10"], SERVING_KEYS)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "action_conditioned_gans_tpu_torch", "bench",
+                               "--mode", mode, *base, *extra], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, f"bench --mode {mode} exited {proc.returncode}: "
+              + proc.stderr[-2000:])
+        lines = proc.stdout.strip().splitlines()
+        check(len(lines) == 1, f"bench --mode {mode} printed {len(lines)} lines: {lines[-5:]}")
+        line = json.loads(lines[0])
+        check((line["batch_size"], line["rollout_length"]) == (128, 10 if extra else 1),
+              f"bench --mode {mode} geometry")
+        check_bench_line(f"bench --mode {mode}", line, keys)
+        say(f"cli bench --mode {mode} ({time.perf_counter() - t0:.1f} s in its process): "
+            f"{lines[0]} ({smi})")
+
+
+def phase21_batch_norm(smi, tmp):
+    """ROADMAP Queue 3 fault 3 on the card: config1 with batch norm in
+    float32, served over [cuda:0, cuda:0] and over the grid [[cuda:0,
+    cuda:0]] live, and over [cuda:0, cuda:0] by its AOT program: predict B=16
+    and rollout T=3 B=16 within 1e-5 of one device. Beside it, the gap the
+    halves normalised alone would show."""
+    from action_conditioned_gans_tpu_torch.aot import AotPredictor, export_aot
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+
+    c1 = get_preset("config1")
+    cfg = c1.replace(model=dataclasses.replace(c1.model, norm="batch", compute_dtype="float32"))
+    params = seeded_params(cfg, seed=22)
+    one = Predictor(cfg, params, device="cuda")
+    path = os.path.join(tmp, "config1_bn_f32.aot")
+    export_aot(cfg, flax_to_state_dict(params), path, rollout_length=3, device="cuda")
+    p_args, r_args = serving_inputs(cfg, 16, 3, 16, seed=22)
+    want_p, want_r = one.predict(*p_args), one.rollout(*r_args)
+    served = {"live [cuda:0, cuda:0]": one.with_mesh(["cuda:0"] * 2),
+              "live [[cuda:0, cuda:0]]": one.with_mesh([["cuda:0", "cuda:0"]]),
+              "AOT [cuda:0, cuda:0]": AotPredictor(path, mesh=["cuda:0"] * 2)}
+    errs = {}
+    for label, p in served.items():
+        errs[label] = max(float((p.predict(*p_args) - want_p).abs().max()),
+                          float((p.rollout(*r_args) - want_r).abs().max()))
+    halves = torch.cat([one.predict(*(None if a is None else a[i:i + 8] for a in p_args))
+                        for i in (0, 8)])
+    split_gap = float((halves - want_p).abs().max())
+    say(f"batch-norm serving, config1 f32 predict B=16 + rollout T=3 B=16, max|d| from one "
+        f"device: {json.dumps(errs)} (bar 1e-5); the two halves normalised alone would differ "
+        f"by {split_gap:.3e} ({smi})")
+    for label, e in errs.items():
+        check(e <= 1e-5, f"batch-norm serving {label} differs from one device by {e:.3e}")
+
+
+def phase21(smi):
+    """Phase 21: the serving half of bench. Returns the launches of its
+    counted runs."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import build
+
+    t_phase = time.perf_counter()
+    say(f"phase 21: the serving half of bench ({smi})")
+    launches = phase21_bench_calls(smi)
+    with tempfile.TemporaryDirectory(prefix="phase21-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
+        launches.update(phase21_aot_bits(smi, tmp))
+        phase21_batch_norm(smi, tmp)
+    phase21_cli(smi)
+    say(f"phase 21 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -4209,6 +4418,8 @@ def main() -> int:
     lap("phase 19")
     launches.update(phase20(smi, totals))
     lap("phase 20")
+    launches.update(phase21(smi))
+    lap("phase 21")
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 

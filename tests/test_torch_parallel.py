@@ -382,6 +382,60 @@ def test_predictors_over_a_mesh_serve_the_one_device_outputs(served, devices):
         mesh_aot.predict(*inputs(devices + 1, state_dim=state_dim))
 
 
+# Batch-norm serving over a mesh: the port's meshes and the reference's (data, model) shapes.
+BN_MESHES = {"dp2": (["cpu"] * 2, (2, 1)), "dp4": (["cpu"] * 4, (4, 1)),
+             "2x2": ([["cpu", "cpu"], ["cpu", "cpu"]], (2, 2)), "aot_dp2": (["cpu"] * 2, (2, 1))}
+
+
+@pytest.fixture(scope="module")
+def bn_served(tmp_path_factory):
+    """A tiny float32 batch-norm generator (state_dim 3) from seeded JAX init
+    weights: the port's one-device Predictor, its AOT artifact (predict and
+    a 3-step rollout), and the JAX config and weights."""
+    from tests.test_torch_aot import TINY, jax_params
+
+    from action_conditioned_gans_tpu import config as jcfg
+    from action_conditioned_gans_tpu_torch.aot import export_aot
+    from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+
+    jc = jcfg.Config(name="tiny-bn", model=jcfg.ModelConfig(**TINY, state_dim=3, norm="batch"),
+                     data=jcfg.DataConfig(seq_len=2), train=jcfg.TrainConfig(batch_size=2))
+    cfg = tcfg.Config(model=tcfg.ModelConfig(**TINY, state_dim=3, norm="batch"))
+    params = jax_params(jc.model, seed=4)
+    path = str(tmp_path_factory.mktemp("aot_bn") / "g.aot")
+    export_aot(cfg, flax_to_state_dict(params), path, rollout_length=3, device="cpu")
+    return Predictor(cfg, params, device="cpu"), path, jc, params
+
+
+@pytest.mark.parametrize("case", sorted(BN_MESHES))
+def test_batch_norm_predictors_over_a_mesh_serve_the_whole_batch(bn_served, case):
+    """Batch norm normalises with the whole batch's moments, so a predictor
+    over a data mesh, a 2x2 grid or ``AotPredictor(mesh=)`` serves the batch
+    whole on its first row: predict and a 3-step rollout within 1e-5 of the
+    one-device predictor and of the reference's ``Predictor(mesh=)`` on a
+    virtual CPU mesh of the same shape (whose GSPMD program takes the
+    moments over the sharded batch)."""
+    from tests.test_torch_aot import inputs
+
+    from action_conditioned_gans_tpu.infer import Predictor as JaxPredictor
+    from action_conditioned_gans_tpu_torch.aot import AotPredictor
+
+    one, path, jc, params = bn_served
+    mesh, (data, model) = BN_MESHES[case]
+    served = AotPredictor(path, mesh=mesh) if case.startswith("aot") else one.with_mesh(mesh)
+    ref = JaxPredictor(jc, params, mesh=jax_make_mesh(JaxMeshConfig(data=data, model=model),
+                                                      devices=jax.devices()[:data * model]))
+    predict_args = inputs(8, state_dim=3, seed=1)
+    rollout_args = inputs(8, t=3, state_dim=3, seed=2)
+    for call, args in (("predict", predict_args), ("rollout", rollout_args)):
+        got = getattr(served, call)(*args)
+        assert got.device == torch.device("cpu")
+        torch.testing.assert_close(got, getattr(one, call)(*args), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(ref, call)(*args)),
+                                   rtol=0, atol=1e-5, err_msg=f"{case} {call}")
+
+
 def test_shard_batches_splits_in_order_and_passes_none():
     from action_conditioned_gans_tpu_torch.infer import mesh_devices, shard_batches
 
