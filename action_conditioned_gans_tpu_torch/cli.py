@@ -325,6 +325,7 @@ def _from_checkpoint(parser, args, cfg: Config) -> int:
     from action_conditioned_gans_tpu_torch.config import resolve_device
     from action_conditioned_gans_tpu_torch.train.state import (
         init_state,
+        refuse_other_layout,
         restore_state,
         state_to_device,
         state_tree,
@@ -344,6 +345,7 @@ def _from_checkpoint(parser, args, cfg: Config) -> int:
             try:
                 state = state_to_device(ckpt.restore(state_tree(state, cfg)), dev)
             except (ValueError, RuntimeError, OSError) as e:  # a tree, file or load error
+                refuse_other_layout(cfg, ckpt, step)
                 parser.error("--ema needs a checkpoint trained with train.ema_decay > 0 "
                              f"(restore failed: {e})")
         else:

@@ -183,6 +183,10 @@ class TrainConfig:
     r1_weight: float = 0.0
     d_label_smooth: float = 0.0
     d_augment: str = ""
+    # One float32 parameter buffer and one Adam-moment vector per optimizer,
+    # updated by one fused Adam launch (train/state.py's flat layout: the
+    # JAX package's optax.flatten); per-tensor when mesh.model > 1. Changes
+    # the checkpointed optimizer layout.
     flatten_optimizer: bool = False
     adam_moment_dtype: str = "float32"
     lr_schedule: str = "constant"

@@ -8,7 +8,8 @@ the layouts (HWIO kernels, (F, 1) dense), so the conversion only renames and
 copies: a round trip is bit-exact. A JAX ``TrainState``'s ``g_params`` and
 ``d_params`` each cross with :func:`flax_to_state_dict` and back with
 :func:`state_dict_to_flax`; a whole JAX ``TrainState``, Adam states
-included, crosses with :func:`train_state_from_jax`, and into one rank's
+included, crosses with :func:`train_state_from_jax` (the per-tensor Adam
+layout, or the flat one of ``train.flatten_optimizer``), and into one rank's
 channel shards of it (``parallel/tp.py``) with
 :func:`train_state_shard_from_jax`.
 """
@@ -86,35 +87,74 @@ def train_state_from_jax(cfg, jax_state_np, device=None):
     ``TrainState`` on ``device`` (cuda unless another device is given):
     ``step``, both parameter trees (float32), both optax Adam states,
     ``count`` and ``mu`` / ``nu`` in their own dtype, and the EMA tree when
-    the state has one. Everything the port's checkpoints hold crosses."""
+    the state has one. Everything the port's checkpoints hold crosses.
+
+    A state trained with ``train.flatten_optimizer`` (optax.flatten: each
+    Adam state's ``mu`` / ``nu`` one vector over the parameters in
+    ``jax.tree.flatten`` order) crosses into the port's flat layout: the
+    vectors as they are, their length checked against the parameter count,
+    the parameters views of one buffer. The JAX state's layout must be the
+    one ``cfg`` keeps (``train.state.flatten_optimizer``), else ValueError
+    naming the knob."""
     from action_conditioned_gans_tpu_torch.config import resolve_device
-    from action_conditioned_gans_tpu_torch.train.state import AdamState, TrainState
+    from action_conditioned_gans_tpu_torch.train.state import (
+        AdamState,
+        TrainState,
+        flat_params,
+        flatten_optimizer,
+    )
 
     dev = resolve_device(device)
     want = cfg.train.adam_moment_dtype
+    flat = flatten_optimizer(cfg)
 
-    def adam(opt_state) -> AdamState:
+    def check_dtype(tensors):
+        bad = {str(v.dtype) for v in tensors} - {f"torch.{want}"}
+        if bad:
+            raise ValueError(f"Adam moments in {sorted(bad)}, the config's "
+                             f"train.adam_moment_dtype is {want!r}")
+
+    def adam(opt_state, params) -> AdamState:
         a = _find_adam(opt_state)
-        if a is None or not isinstance(a.mu, Mapping):
-            raise ValueError("no per-tensor optax Adam state found (flatten_optimizer is not "
-                             "ported)")
+        if a is None:
+            raise ValueError("no optax Adam state (count, mu, nu) found in the optimizer state")
+        jax_flat = not isinstance(a.mu, Mapping)
+        if jax_flat != flat:
+            raise ValueError(
+                f"the JAX state's Adam moments are {'flat' if jax_flat else 'per-tensor'}, and "
+                f"this config keeps them {'flat' if flat else 'per-tensor'} "
+                f"(train.flatten_optimizer={cfg.train.flatten_optimizer}, mesh.model="
+                f"{cfg.mesh.model}: flat needs train.flatten_optimizer=true and mesh.model <= 1, "
+                "as in the JAX package)")
+        count = int(np.asarray(a.count))
+        if jax_flat:
+            n = sum(v.numel() for v in params.values())
+            mu, nu = (_tensor_keep_dtype(v).to(dev) for v in (a.mu, a.nu))
+            for v in (mu, nu):
+                if tuple(v.shape) != (n,):
+                    raise ValueError(f"flat Adam moments of shape {tuple(v.shape)}; the "
+                                     f"parameters hold {n} values")
+            check_dtype((mu, nu))
+            return AdamState(count=count, mu=mu, nu=nu)
         moments = []
         for tree in (a.mu, a.nu):
             sd = {k.replace("/", "."): _tensor_keep_dtype(v).to(dev)
                   for k, v in flatten_flax(tree).items()}
-            bad = {str(v.dtype) for v in sd.values()} - {f"torch.{want}"}
-            if bad:
-                raise ValueError(f"Adam moments in {sorted(bad)}, the config's "
-                                 f"train.adam_moment_dtype is {want!r}")
+            check_dtype(sd.values())
             moments.append(sd)
-        return AdamState(count=int(np.asarray(a.count)), mu=moments[0], nu=moments[1])
+        return AdamState(count=count, mu=moments[0], nu=moments[1])
 
-    params = lambda tree: {k: v.to(dev) for k, v in flax_to_state_dict(tree).items()}  # noqa: E731
+    def params(tree):
+        sd = flax_to_state_dict(tree)
+        return flat_params(sd, dev) if flat else {k: v.to(dev) for k, v in sd.items()}
+
     g_ema = getattr(jax_state_np, "g_ema", None)
-    return TrainState(step=int(np.asarray(jax_state_np.step)),
-                      g_params=params(jax_state_np.g_params), d_params=params(jax_state_np.d_params),
-                      g_opt=adam(jax_state_np.g_opt), d_opt=adam(jax_state_np.d_opt),
-                      g_ema=None if g_ema is None else params(g_ema))
+    g_params, d_params = params(jax_state_np.g_params), params(jax_state_np.d_params)
+    return TrainState(step=int(np.asarray(jax_state_np.step)), g_params=g_params,
+                      d_params=d_params, g_opt=adam(jax_state_np.g_opt, g_params),
+                      d_opt=adam(jax_state_np.d_opt, d_params),
+                      g_ema=None if g_ema is None else
+                      {k: v.to(dev) for k, v in flax_to_state_dict(g_ema).items()})
 
 
 def train_state_shard_from_jax(cfg, jax_state_np, index: int, size: int, device=None):
@@ -122,7 +162,9 @@ def train_state_shard_from_jax(cfg, jax_state_np, index: int, size: int, device=
     ``TrainState`` with numpy leaves (:func:`train_state_from_jax`, then
     ``parallel.tp.shard_state``): what that rank of a ``(data, model)`` mesh
     holds. ``parallel.tp.gather_state`` over the ranks' shards gives the
-    converted state back, bit for bit."""
+    converted state back, bit for bit. A flat JAX state, which the JAX
+    package cannot make on a model axis either, is refused (its
+    ``train_state_from_jax``)."""
     from action_conditioned_gans_tpu_torch.parallel.tp import shard_state
 
     return shard_state(train_state_from_jax(cfg, jax_state_np, device=device), index, size)

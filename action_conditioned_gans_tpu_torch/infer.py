@@ -256,13 +256,19 @@ class Predictor:
         The JAX package's EMA rules: the template's EMA tree follows the
         checkpoint, not the config, so a plain checkpoint restores under an
         EMA config and an EMA checkpoint under a plain one; ``use_ema=True``
-        on a checkpoint without EMA weights raises ValueError; any other
-        failure (no such step, a key, shape or dtype) raises the first
-        restore attempt's own error. Whether EMA weights exist is read from
+        on a checkpoint without EMA weights raises ValueError; a checkpoint
+        whose optimizer layout is not the config's raises naming
+        ``train.flatten_optimizer``, as the JAX package's template restore
+        refuses it; any other failure (no such step, a key, shape or dtype)
+        raises the first restore attempt's own error. Whether EMA weights exist is read from
         the stored tree: no EMA tree is made up from the parameters.
         ``mesh``: as the constructor's."""
         from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
-        from action_conditioned_gans_tpu_torch.train.state import state_from_params, state_tree
+        from action_conditioned_gans_tpu_torch.train.state import (
+            refuse_other_layout,
+            state_from_params,
+            state_tree,
+        )
         from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
 
         meta = torch.device("meta")
@@ -284,6 +290,7 @@ class Predictor:
             try:
                 tree = mgr.restore(template(not want_ema), step=step, device="cpu")
             except Exception:
+                refuse_other_layout(cfg, mgr, step)
                 raise first from None
             if use_ema:
                 raise ValueError("use_ema=True but the checkpoint has no EMA weights "

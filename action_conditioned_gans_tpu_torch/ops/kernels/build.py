@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
-KERNELS = ("conv_norm_act", "conv_transpose_norm_act", "group_norm_act", "gn_act_bwd")
+KERNELS = ("conv_norm_act", "conv_transpose_norm_act", "group_norm_act", "gn_act_bwd", "adam_flat")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -130,6 +130,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
+    if name == "adam_flat":
+        lib.acg_adam_flat.argtypes = (
+            [_P] * 5  # p, g, mu, nu, norm (None without clipping)
+            + [_I, ctypes.c_longlong]  # bf16 moments, n
+            + [_F] * 9  # b1, 1 - b1, b2, 1 - b2, 1 / bc1, 1 / bc2, eps, -lr, clip
+            + [_P]  # stream
+        )
+        lib.acg_adam_flat.restype = _I
+        return
     if name == "gn_act_bwd":
         lib.acg_gn_bwd_plan.argtypes = [_I] * 6 + [_P]  # y_bytes, t_bytes, B, HW, C, groups, out
         lib.acg_gn_bwd_plan.restype = _I

@@ -2,11 +2,12 @@
 
 ``mean_reduce_`` averages a set of tensors over the group in place with ONE
 all-reduce of their flattened concatenation (the step's gradient sets and
-metrics). ``all_reduce_mean`` is the differentiable average the synced batch
-statistics take: its backward sums the cotangents over the ranks (the
-transpose of the JAX ``lax.pmean``, so that the ranks' mean gradient is the
-gradient of the global batch's loss), and is itself an all-reduce that
-autograd differentiates again (R1's double backward through batch norm).
+metrics), or of the one flat gradient itself. ``all_reduce_mean`` is the
+differentiable average the synced batch statistics take: its backward sums
+the cotangents over the ranks (the transpose of the JAX ``lax.pmean``, so
+that the ranks' mean gradient is the gradient of the global batch's loss),
+and is itself an all-reduce that autograd differentiates again (R1's double
+backward through batch norm).
 Every rank must issue the same collectives in the same order; the step's
 graph is the same on every rank, so its backward is too.
 
@@ -139,8 +140,16 @@ def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
 def mean_reduce_(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     """Replace each tensor (same dtype and device) by its mean over
     ``group``, through one all-reduce of their flattened concatenation;
-    returns them."""
+    returns them. One contiguous tensor (a flat gradient of
+    ``train.flatten_optimizer``) is reduced in place: no concatenation, no
+    copy back."""
     tensors = list(tensors)
+    if len(tensors) == 1 and tensors[0].is_contiguous():
+        (t,) = tensors
+        with torch.no_grad():
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            t.div_(dist.get_world_size(group))
+        return tensors
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     flat.div_(dist.get_world_size(group))

@@ -52,6 +52,11 @@ averaged over the model group, which holds them equal already, so that
 their ranks stay bit for bit equal; the gradient norms (``log_grad_norms``,
 ``grad_clip_norm``) are the whole model's.
 
+With ``train.flatten_optimizer`` (``train/state.py``'s flat layout) each
+gradient set is concatenated into one vector in the layout's order, as
+optax.flatten does (D's microbatch chunks add into it), averaged over the
+ranks by one all-reduce in place, and applied by one fused Adam launch.
+
 On CUDA every conv block runs its Hopper kernel forward and, for a GroupNorm
 layer, the GroupNorm+activation backward kernel (``ops/kernels``); on the CPU
 the plain versions.
@@ -83,6 +88,7 @@ from action_conditioned_gans_tpu_torch.train.rollout import (
 from action_conditioned_gans_tpu_torch.train.state import (
     TrainState,
     ema_update_,
+    flat_grad,
     global_norm,
     make_optimizers,
 )
@@ -235,8 +241,21 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         g_specs = param_specs(gen.state_dict(), tp.model)
         d_specs = param_specs(disc.state_dict(), tp.model)
 
+    flat = g_tx.flat
+
+    def gathered(params, grads):
+        """A gradient set as the update takes it: the list in the order of
+        ``params``, or in the flat layout one vector."""
+        return flat_grad(params, grads) if flat else list(grads)
+
     def mean_over_ranks(tensors):
-        return comm.mean_reduce_(tensors, group) if group is not None else list(tensors)
+        """The set (a list, or the flat layout's one vector, reduced in
+        place) averaged over the data group."""
+        if group is None:
+            return tensors
+        if isinstance(tensors, torch.Tensor):
+            return comm.mean_reduce_([tensors], group)[0]
+        return comm.mean_reduce_(tensors, group)
 
     def sharded(params, specs):
         """Whether each parameter (in order) is a channel shard."""
@@ -357,11 +376,14 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
                     r1 = r1_penalty(d_leaves, rl, cr, ac, st)
                     loss = loss + 0.5 * t.r1_weight * r1
                     d_r1 = mean_of(d_r1, r1)
-                grads = torch.autograd.grad(loss, list(d_leaves.values()))
+                grads = gathered(d_leaves, torch.autograd.grad(loss, list(d_leaves.values())))
                 if nc > 1:
-                    grads = torch._foreach_div(grads, float(nc))
+                    grads = (grads / float(nc) if flat
+                             else torch._foreach_div(grads, float(nc)))
                 if d_grads is None:
-                    d_grads = list(grads)
+                    d_grads = grads
+                elif flat:
+                    d_grads.add_(grads)
                 else:
                     torch._foreach_add_(d_grads, grads)
                 d_loss = mean_of(d_loss, loss)
@@ -387,8 +409,8 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
             d_preds.append(dp * (1.0 / nc) if nc > 1 else dp)
             g_loss, g_adv = mean_of(g_loss, loss), mean_of(g_adv, adv)
             g_recon = mean_of(g_recon, recon)
-        g_grads = mean_replicated(mean_over_ranks(torch.autograd.grad(
-            flat_preds, list(g_leaves.values()), d_preds[0] if nc == 1 else torch.cat(d_preds))),
+        g_grads = mean_replicated(mean_over_ranks(gathered(g_leaves, torch.autograd.grad(
+            flat_preds, list(g_leaves.values()), d_preds[0] if nc == 1 else torch.cat(d_preds)))),
             g_mask)
         g_tx.update_(state.g_params, g_grads, state.g_opt, norm=g_norm)
         if t.ema_decay > 0:
@@ -406,8 +428,8 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         if t.log_grad_norms:
             # Pre-clip global norms of the averaged gradients; D's is the last
             # disc_steps iteration's.
-            metrics["g_grad_norm"] = g_norm(g_grads)
-            metrics["d_grad_norm"] = d_norm(d_grads)
+            metrics["g_grad_norm"] = g_norm([g_grads] if flat else g_grads)
+            metrics["d_grad_norm"] = d_norm([d_grads] if flat else d_grads)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step

@@ -115,16 +115,21 @@ class CheckpointManager:
         of the template's tensors when None (a template on the meta device
         then needs a ``device``). Raises naming the first key, shape or dtype
         that differs from ``template``; strings and ints are taken from disk."""
-        step = self.latest_step() if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint found in {self.directory}")
         if device is None:
             ref = _first_tensor(template)
             device = ref.device if ref is not None else torch.device("cpu")
-        state = torch.load(os.path.join(self.directory, str(step), _FILE), map_location=device,
-                           weights_only=True)
+        state = self.load(step, device)
         _check_like(state, template)
         return state
+
+    def load(self, step: Optional[int] = None, device="cpu") -> dict:
+        """The tree at ``step`` (the latest when None) on ``device``, as it is
+        on disk (no template, no check)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found in {self.directory}")
+        return torch.load(os.path.join(self.directory, str(step), _FILE), map_location=device,
+                          weights_only=True)
 
     def wait(self) -> None:
         """Saves are synchronous; kept for the JAX package's interface."""

@@ -6,7 +6,7 @@ counterpart of the JAX package's ``utils/xplane.py``, which reads
 (``train/loop.py``), with one ``acgan:train_call[k=K]`` span a call. This
 module reads the newest such trace and gives xplane's views: every device
 kernel (and copy, and memset) with its count, device µs and share of the
-busy time; the same by group (the four ``acgan`` kernels by symbol, cuDNN and
+busy time; the same by group (the five ``acgan`` kernels by symbol, cuDNN and
 cuBLAS convolutions and GEMMs, elementwise, copies and memsets, other); the
 steps a call (the spans' K) and a step's share of each; and the device's
 busy share of the traced window.
@@ -20,7 +20,9 @@ counters do. A row of kernels 1-4 carries a roofline time (its FLOPs over
 the bf16 or float32 peak, or its bytes over the memory rate, whichever is
 longer, as ``chip_smoke.py`` reckons its bounds) when the trace holds the
 shapes of the autograd op that launched it (``record_shapes``, as the loop
-records them); otherwise, and for every other row, it is null.
+records them); otherwise, and for every other row, it is null. Kernel 5
+(``adam_flat``, the fused Adam of ``train.flatten_optimizer``) is launched
+outside autograd, so its rows carry no roofline.
 
 Consumed by ``python -m action_conditioned_gans_tpu_torch profile-report``.
 """
@@ -40,7 +42,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-KERNELS = ("conv_norm_act", "conv_transpose_norm_act", "group_norm_act", "gn_act_bwd")
+KERNELS = (
+    "conv_norm_act", "conv_transpose_norm_act", "group_norm_act", "gn_act_bwd", "adam_flat")
 GROUPS = tuple(f"acgan {k} (kernel {i})" for i, k in enumerate(KERNELS, 1)) + (
     "cuDNN / cuBLAS conv and GEMM", "elementwise", "copies and memsets", "other")
 _CONV = re.compile(r"conv_(?:wgmma|wmma|fma)_kernel<(true|false)")
@@ -72,7 +75,7 @@ class Summary:
     busy_share: float
     rows: List[Row]
     group_us: Dict[str, float]
-    # kernels 1-4: launches, device_us, and roof_us summed over the
+    # kernels 1-5: launches, device_us, and roof_us summed over the
     # roof_launches whose shapes the trace holds (None when it holds none)
     kernels: Dict[str, Dict[str, float]]
 
@@ -101,6 +104,8 @@ def load_trace(path: str) -> dict:
 def _owner(name: str) -> Optional[str]:
     """The acgan kernel a device kernel belongs to by its symbol; "epilogue"
     for the GroupNorm kernels kernels 1 and 2 share."""
+    if "adam_flat_kernel" in name:
+        return "adam_flat"
     if "gn_bwd_cluster_kernel" in name or "gn_bwd_batch_sum_kernel" in name:
         return "gn_act_bwd"
     if "gn_cluster_kernel" in name:
@@ -118,7 +123,8 @@ def _owner(name: str) -> Optional[str]:
 def _primary(name: str) -> bool:
     """Whether a kernel is the one launch a wrapper call counts."""
     return bool(_CONV.search(name)) or any(k in name for k in (
-        "narrow_transpose_kernel", "gn_cluster_kernel", "gn_bwd_cluster_kernel"))
+        "narrow_transpose_kernel", "gn_cluster_kernel", "gn_bwd_cluster_kernel",
+        "adam_flat_kernel"))
 
 
 def _group(event: dict, owner: Optional[str]) -> str:

@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit, no final line):
 1. Print the card and its power limit; build every Hopper kernel from
    ``action_conditioned_gans_tpu_torch/csrc`` (one nvcc per source, in
    parallel) and print what ``ptxas -v`` says of the wgmma mainloop's
-   instances in kernels 1 and 2, of kernel 2's narrow mainloop and of
-   kernels 3 and 4's cluster kernels (registers, spills: none allowed).
+   instances in kernels 1 and 2, of kernel 2's narrow mainloop, of
+   kernels 3 and 4's cluster kernels and of kernel 5's eight instances
+   (registers, spills: none allowed).
 2. Per-kernel parity of kernels 1-2 at the seven config1 generator layer
    shapes and the four config1 discriminator layer shapes (batch 8), at
    every other shape of kernels 1-2 on the main paths (the config3 and
@@ -294,14 +295,39 @@ Phases, each of which fails the run (non-zero exit, no final line):
     (live and AOT) and [[cuda:0, cuda:0]] within 1e-5 of one device. Then
     ``bench --mode infer`` and ``--mode serving`` (config1 B=128, T=10) as
     processes of their own, one JSON line each.
+22. ``train.flatten_optimizer`` (the JAX package's ``optax.flatten``):
+    kernel 5 (``csrc/adam_flat.cu``, one fused clip-and-Adam pass over a
+    flat vector) against its plain version at config1's and config5's G and
+    D sizes (1,917,635 / 2,772,801 / 16,283,331 / 19,019,457), float32 and
+    bfloat16 moments, with and without clipping, over 3 updates: the largest
+    ULP distance and the entries that differ of p, mu and nu (bar 1 ULP);
+    its device time (CUDA-graph replay), the plain version's, one
+    ``torch._fused_adam_`` call over the same tensor (float32 moments) and
+    the bound (28 or 20 bytes a parameter over the memory rate), the
+    ``adam_layer`` lines. The config1 step (B=128) flat against per-tensor
+    under cudnn.deterministic, 3 steps, float32 and bfloat16 moments, within
+    atol 1e-9 + rtol 1e-6 (the bfloat16 flat steps counted: EXPECTED["config1
+    flat step"] x 3), the Adam launches a step of both layouts (profiler, in
+    a process of its own: ``chip_smoke.py --adam-launches``; the device's
+    kernels must equal the host's launch calls) and their step
+    times in turns. A flat ``train`` (phase 12's arguments, 48
+    steps, counted) against one stopped by SIGTERM after its first call and
+    resumed: bit for bit; its checkpoint served through
+    ``Predictor.from_checkpoint``. A world-1 NCCL DP step with the flat
+    layout, bit for bit against the step without a group (counted); the
+    ``bench`` line of the flat path (phase 12's settings). Kernel
+    times take turns over copies of the operands, so that each launch finds
+    its own out of L2.
 
 Then a ``kernels`` JSON line (per kernel: launches summed over every main
 path, the config2, config4 and config5 steps, the config1 file, config2 and
-config4 loops, the AOT programs, phase 18's paths, phases 19 and 20's ranks
-and phase 21's benches included; max |err|,
+config4 loops, the AOT programs, phase 18's paths, phases 19 and 20's ranks,
+phase 21's benches and phase 22's flat paths included; max |err|,
 kernel, plain, bound and library
 times; kernel 4's over the config1 step's calls, and its config3 step's sums
-beside them), then the final line ``{"ok": true, "device": {...}}``.
+beside them; kernel 5's over config1's G and D vectors with bfloat16
+moments, the main path's, with its float32 and config5 numbers beside), then
+the final line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -347,6 +373,13 @@ KERNEL_INFO = {
     "gn_act_bwd": dict(
         source="action_conditioned_gans_tpu_torch/csrc/gn_act_bwd.cu",
         replaces="action_conditioned_gans_tpu/ops/pallas/gn_bwd.py:120",
+    ),
+    # No Pallas counterpart: the XLA fusion of the reference's
+    # optax.flatten(inner) optimizer chain (train.flatten_optimizer).
+    "adam_flat": dict(
+        source="action_conditioned_gans_tpu_torch/csrc/adam_flat.cu",
+        replaces="action_conditioned_gans_tpu/train/state.py:182 (optax.flatten's fused "
+                 "update; no Pallas kernel)",
     ),
 }
 # Per main path: each kernel's launches per generator call (serving) or per
@@ -470,6 +503,15 @@ EXPECTED = {
                             dict(conv_norm_act=dict(wgmma=8, wmma=2),
                                  conv_transpose_norm_act=dict(wgmma=6)), (16, 5)),
 }
+# Kernel 5 (adam_flat) runs only with train.flatten_optimizer: 0 launches on
+# every path above.
+for _launches, *_ in EXPECTED.values():
+    _launches["adam_flat"] = 0
+# Phase 22: config1 as phase 10 trains it with train.flatten_optimizer: the
+# config1 step's kernels, and one adam_flat launch for D's update and one
+# for G's.
+EXPECTED["config1 flat step"] = (dict(EXPECTED["config1 step"][0], adam_flat=2),
+                                 *EXPECTED["config1 step"][1:])
 # The routes beside (fused, split) per generator call or step, 0 where not
 # given (ops/api.py): "bare" split convs on kernel 1 or 2, "plain" conv
 # blocks of R1's inner D call, "s2d" / "subpixel" convs rewritten (G enc_0
@@ -864,18 +906,20 @@ def phase_config5_f32():
 
 def reset_launches():
     from action_conditioned_gans_tpu_torch.ops import api
-    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
+    from action_conditioned_gans_tpu_torch.ops.kernels import adam, conv, gn_bwd, norm_act
 
     conv.reset_launches()
     norm_act.reset_launches()
     gn_bwd.reset_launches()
+    adam.reset_launches()
     api.reset_routes()
 
 
 def read_launches():
-    from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
+    from action_conditioned_gans_tpu_torch.ops.kernels import adam, conv, gn_bwd, norm_act
 
-    return {**conv.LAUNCHES, **norm_act.LAUNCHES, **gn_bwd.LAUNCHES, **conv.LAUNCHES_BY_MAINLOOP}
+    return {**conv.LAUNCHES, **norm_act.LAUNCHES, **gn_bwd.LAUNCHES, **adam.LAUNCHES,
+            **conv.LAUNCHES_BY_MAINLOOP}
 
 
 def check_counts(path, launches, times):
@@ -906,7 +950,7 @@ def check_runs(label, launches, runs, routes=None):
 
 
 def check_launches(label, launches, runs):
-    """Kernels 1-4's launches, and kernels 1-2's by mainloop, against the sum
+    """Kernels 1-5's launches, and kernels 1-2's by mainloop, against the sum
     of EXPECTED over ``runs``."""
     from action_conditioned_gans_tpu_torch.ops.kernels import conv
 
@@ -1836,7 +1880,11 @@ def final_params(workdir, step):
         flat.update({f"{name}/{k}": v for k, v in state.get(name, {}).items()})
     for name in ("g_opt", "d_opt"):
         for moments in ("mu", "nu"):
-            flat.update({f"{name}/{moments}/{k}": v for k, v in state[name][moments].items()})
+            m = state[name][moments]
+            if isinstance(m, torch.Tensor):  # train.flatten_optimizer's one vector
+                flat[f"{name}/{moments}"] = m
+            else:
+                flat.update({f"{name}/{moments}/{k}": v for k, v in m.items()})
         flat[f"{name}/count"] = torch.tensor(state[name]["count"])
     return flat
 
@@ -2830,7 +2878,7 @@ def phase_file_data(smi, phase12_dir, synthetic_cadence_ms, phase12_totals):
     k = report["kernels"]
     want = {name: EXPECTED["config1 step"][0][name] * 16 + EXPECTED["config1 serving"][0][name]
             for name in KERNEL_INFO}
-    for name in ("conv_norm_act", "conv_transpose_norm_act", "gn_act_bwd"):
+    for name in ("conv_norm_act", "conv_transpose_norm_act", "gn_act_bwd", "adam_flat"):
         check(k[name]["launches"] == want[name], f"profile-report: {name} launched "
               f"{k[name]['launches']} times in the trace, want {want[name]}")
     mine = {"kernels 1-2 ms": (k["conv_norm_act"]["device_us"]
@@ -4292,6 +4340,447 @@ def phase21(smi):
     return launches
 
 
+# -- phase 22: the flat optimizer (train.flatten_optimizer) ----------------------------
+
+# Parameter counts of G and D at config1 and config5 (the flat vectors kernel 5
+# updates; tests/test_torch_flat_optimizer.py pins the layouts).
+ADAM_SIZES = {"config1 G": 1_917_635, "config1 D": 2_772_801, "config5 G": 16_283_331,
+              "config5 D": 19_019_457}
+ADAM_HYPER = dict(b1=0.5, b2=0.999, eps=1e-8, lr=2e-4)  # the presets' Adam
+ADAM_OPS = 11  # float32 operations an element: 3 mul, 3 fma, 3 div, sqrt, add
+
+
+def flat_train_config(batch=128):
+    """config1 as phase 10 trains it, with train.flatten_optimizer."""
+    cfg = config1_train_config(batch)
+    return cfg.replace(train=dataclasses.replace(cfg.train, flatten_optimizer=True))
+
+
+def ulp_distance(a, b):
+    """(largest distance in units in the last place, entries whose bits
+    differ) between two float32 or bfloat16 tensors (+0 and -0 equal)."""
+    bits, mask = (torch.int32, 0x7FFFFFFF) if a.dtype == torch.float32 else (torch.int16, 0x7FFF)
+
+    def ordered(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & mask), i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    return int(d.max()), int((d > 0).sum())
+
+
+def adam_operands(n, moments, seed):
+    """A flat parameter vector, its moments and three gradients on the card,
+    from a seed: the gradients' global norms 0.5, 5 and 0.5 (the second is
+    clipped by a clip of 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn(n, device="cuda", generator=gen) * 0.05
+    mu = (torch.randn(n, device="cuda", generator=gen) * 1e-3).to(moments)
+    nu = (torch.rand(n, device="cuda", generator=gen) * 1e-6).to(moments)
+    grads = [torch.randn(n, device="cuda", generator=gen) * (s / n ** 0.5) for s in (0.5, 5.0, 0.5)]
+    return p, mu, nu, grads
+
+
+def adam_scalars(count, clip=0.0, g=None):
+    return dict(ADAM_HYPER, bc1=1.0 - ADAM_HYPER["b1"] ** count,
+                bc2=1.0 - ADAM_HYPER["b2"] ** count, clip=clip,
+                norm=torch.linalg.vector_norm(g) if clip > 0 else None)
+
+
+def phase22_parity():
+    """Kernel 5 against its plain version on the card at config1's and
+    config5's G and D sizes, float32 and bfloat16 moments, with and without
+    clipping: three updates from one state, then each of p, mu and nu held
+    to 1 ULP. Returns the largest |kernel - plain| over them."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import adam as K
+
+    worst = 0.0
+    for i, (label, n) in enumerate(ADAM_SIZES.items()):
+        for moments in (torch.float32, torch.bfloat16):
+            for clip in (0.0, 1.0):
+                p, mu, nu, grads = adam_operands(n, moments, seed=220 + i)
+                kp, kmu, knu = p.clone(), mu.clone(), nu.clone()
+                for count, g in enumerate(grads, 1):
+                    K.adam_flat(kp, g, kmu, knu, **adam_scalars(count, clip, g))
+                    K.adam_flat_plain(p, g, mu, nu, **adam_scalars(count, clip, g))
+                torch.cuda.synchronize()
+                ulps = {name: ulp_distance(a, b) for name, a, b in (
+                    ("p", kp, p), ("mu", kmu, mu), ("nu", knu, nu))}
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in ((kp, p), (kmu, mu), (knu, nu)))
+                say(f"adam_flat parity {label} n={n} {str(moments)[6:]} moments clip={clip}: "
+                    f"3 updates, (max ULP, entries differing) " + json.dumps(ulps)
+                    + f", max |d|={err:.3e}")
+                check(all(bool(torch.isfinite(t.float()).all()) for t in (kp, kmu, knu)),
+                      f"adam_flat {label}: a non-finite value")
+                check(all(u <= 1 for u, _ in ulps.values()),
+                      f"adam_flat {label} {moments} clip={clip}: beyond 1 ULP of the plain version")
+                worst = max(worst, err)
+    return worst
+
+
+def phase22_times(smi, worst):
+    """Kernel 5, its plain version and (float32 moments) one
+    ``torch._fused_adam_`` call over the same single tensor, device time by
+    CUDA-graph replay, at each ADAM_SIZES vector, with the bound (bytes over
+    the memory rate). Successive launches take turns over enough copies of
+    the operands that each finds its own out of the 50 MB L2, as an update
+    in a step finds them. Returns the kernels line's totals: config1's G + D
+    with bfloat16 moments (the main path's), and its float32 numbers beside."""
+    import itertools
+
+    from action_conditioned_gans_tpu_torch.ops.kernels import adam as K
+
+    rows = {}
+    for label, n in ADAM_SIZES.items():
+        for moments in (torch.float32, torch.bfloat16):
+            nbytes = n * (28 if moments == torch.float32 else 20)
+            copies = [adam_operands(n, moments, seed=229 + j)
+                      for j in range(1 + -(-100_000_000 // nbytes))]
+            kw = adam_scalars(1)
+            step = torch.ones((), device="cuda")
+
+            def rotating(fn, turn=itertools.count()):
+                def call():
+                    p, mu, nu, (g, *_) = copies[next(turn) % len(copies)]
+                    fn(p, g, mu, nu)
+                return call
+
+            ms = device_time_ms(rotating(lambda p, g, mu, nu: K.adam_flat(p, g, mu, nu, **kw)))
+            plain_ms = device_time_ms(rotating(
+                lambda p, g, mu, nu: K.adam_flat_plain(p, g, mu, nu, **kw)))
+            library_ms = None
+            if moments == torch.float32:
+                try:
+                    library_ms = device_time_ms(rotating(lambda p, g, mu, nu: torch._fused_adam_(
+                        [p], [g], [mu], [nu], [], [step], lr=kw["lr"], beta1=kw["b1"],
+                        beta2=kw["b2"], weight_decay=0.0, eps=kw["eps"], amsgrad=False,
+                        maximize=False)))
+                except (RuntimeError, TypeError) as e:
+                    say(f"adam_flat: torch._fused_adam_ refused the call, library time not "
+                        f"measured: {e}")
+            bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ADAM_OPS * n / PEAK_F32_FLOPS * 1e3
+            row = dict(vector=label, n=n, moments=str(moments)[6:], ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms), bytes=nbytes,
+                       ops_ms=ops_ms, bytes_ms=bytes_ms, gb_per_s=nbytes / ms / 1e6,
+                       operand_copies=len(copies), card=smi)
+            del copies
+            say("adam_layer " + json.dumps(row))
+            rows[(label, row["moments"])] = row
+    def total(key, moments, model="config1"):
+        parts = [rows[(f"{model} {net}", moments)][key] for net in ("G", "D")]
+        return None if None in parts else sum(parts)
+
+    return dict(ms=total("ms", "bfloat16"), plain_ms=total("plain_ms", "bfloat16"),
+                library_ms=None, bound_ms=total("bound_ms", "bfloat16"),
+                ops_ms=total("ops_ms", "bfloat16"), bytes_ms=total("bytes_ms", "bfloat16"),
+                max_abs_err=worst, f32_ms=total("ms", "float32"),
+                f32_plain_ms=total("plain_ms", "float32"),
+                f32_library_ms=total("library_ms", "float32"),
+                f32_bound_ms=total("bound_ms", "float32"),
+                config5_ms=total("ms", "bfloat16", "config5"),
+                config5_bound_ms=total("bound_ms", "bfloat16", "config5"))
+
+
+def optimizer_launches(cfg, state, tries=3):
+    """Device kernels that one train step's Adam updates launch (G's, and
+    D's once for each of ``disc_steps``), from torch.profiler over the
+    updates alone on gradients shaped as the step's.
+
+    Each launch runs one kernel, so the kernels a trace holds must equal the
+    launch calls (``cudaLaunchKernel``) it holds on the host side. On an
+    H100 a trace was seen to lose all or part of its device side now and
+    then (0 of a flat step's 2 kernels, 98 of a per-tensor step's 148), so
+    the window is padded by 50 ms at each end, and a trace whose two counts
+    differ, or that holds no launch, is taken again, up to ``tries`` times.
+    Returns the device count of the first trace whose counts agree; raises
+    if none does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from action_conditioned_gans_tpu_torch.train.state import flat_grad, make_optimizers
+
+    g_tx, d_tx = make_optimizers(cfg)
+    work = []
+    for tx, params, opt in ((d_tx, state.d_params, state.d_opt), (g_tx, state.g_params, state.g_opt)):
+        grads = [torch.randn_like(v) * 1e-3 for v in params.values()]
+        if tx.flat:
+            grads = flat_grad(params, grads)
+        work.append((tx, params, grads, opt))
+    seen = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for tx, params, grads, opt in work:
+                for _ in range(max(cfg.train.disc_steps, 1) if tx is d_tx else 1):
+                    tx.update_(params, grads, opt)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        events = list(prof.events())
+        kernels = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+        calls = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                    and "LaunchKernel" in e.name)
+        if kernels == calls > 0:
+            return kernels
+        seen.append((kernels, calls))
+    raise RuntimeError(f"torch.profiler's kernels and launch calls differed in {tries} traces "
+                       f"(kernels, calls): {seen}")
+
+
+def adam_launches_main() -> int:
+    """``chip_smoke.py --adam-launches``: :func:`optimizer_launches` of the
+    config1 step in both layouts, float32 and bfloat16 moments, as one JSON
+    line. Phase 22 runs it in a process of its own: late in a long process
+    that has traced before, torch.profiler was seen to miss device events
+    (0 launches where a fresh process counts 20)."""
+    from action_conditioned_gans_tpu_torch.train import init_state
+
+    out = {}
+    for moments in ("float32", "bfloat16"):
+        for flat in (False, True):
+            cfg = flat_train_config() if flat else config1_train_config()
+            cfg = cfg.replace(train=dataclasses.replace(cfg.train, adam_moment_dtype=moments))
+            state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+            out[f"{moments} {'flat' if flat else 'per-tensor'}"] = optimizer_launches(cfg, state)
+    print(json.dumps(out))
+    return 0
+
+
+def phase22_steps(smi):
+    """The config1 step (B=128, bfloat16 compute) with train.flatten_optimizer
+    against the step without it, under cudnn.deterministic: 3 steps from one
+    init, float32 and bfloat16 moments, the parameters within the reference
+    test's bar (atol 1e-9, rtol 1e-6); the flat bfloat16 steps counted
+    (counts set to 0 just before, read just after). Then both layouts' Adam
+    launches a step (profiler, :func:`adam_launches_main`) and their step
+    times in turns. Returns the counted launches."""
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--adam-launches"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"chip_smoke.py --adam-launches exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    counted = json.loads(proc.stdout.strip().splitlines()[-1])
+    deterministic = torch.backends.cudnn.deterministic
+    launches = None
+    for moments in ("float32", "bfloat16"):
+        cfgs = {flat: (flat_train_config() if flat else config1_train_config()) for flat in (0, 1)}
+        cfgs = {k: c.replace(train=dataclasses.replace(c.train, adam_moment_dtype=moments))
+                for k, c in cfgs.items()}
+        batches = [{k: v.cuda() for k, v in b.items()} for b in phase19_batches(cfgs[0], 4, 22)]
+        states, steps = {}, {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for flat, cfg in cfgs.items():
+                state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+                steps[flat] = make_train_step(cfg, device="cuda")
+                if flat and moments == "bfloat16":
+                    torch.cuda.synchronize()
+                    reset_launches()
+                for i in range(3):
+                    state, m = steps[flat](state, batches[i])
+                torch.cuda.synchronize()
+                if flat and moments == "bfloat16":
+                    launches = read_launches()
+                    check_counts("config1 flat step", launches, 3)
+                states[flat] = state
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        worst, same = 0.0, True
+        for tree in ("g_params", "d_params"):
+            for k, want in getattr(states[0], tree).items():
+                got = getattr(states[1], tree)[k]
+                same &= torch.equal(got, want)
+                excess = float(((got - want).abs() - (1e-9 + 1e-6 * want.abs())).max())
+                worst = max(worst, excess)
+        diff = max(float((getattr(states[1], t)[k] - v).abs().max())
+                   for t in ("g_params", "d_params") for k, v in getattr(states[0], t).items())
+        say(f"flat step: config1 B=128 {moments} moments, 3 steps flat against per-tensor, "
+            f"cudnn.deterministic: bit-identical {same}, max |d| {diff:.3e}")
+        check(worst <= 0, f"flat step ({moments} moments) beyond atol 1e-9 + rtol 1e-6 of the "
+              f"per-tensor step (excess {worst:.3e})")
+        adam = {0: counted[f"{moments} per-tensor"], 1: counted[f"{moments} flat"]}
+        times = {0: [], 1: []}
+        state = {flat: states[flat] for flat in (0, 1)}
+        for flat in (0, 1, 1, 0):
+            def window(flat=flat):
+                for i in range(10):
+                    state[flat], _ = steps[flat](state[flat], batches[i % 4])
+            times[flat].append(cuda_time_ms(window, iters=1, warmup=1) / 10)
+        line = dict(path="config1 step", batch=128, moments=moments,
+                    adam_launches_per_step_per_tensor=adam[0], adam_launches_per_step_flat=adam[1],
+                    step_ms_per_tensor=times[0], step_ms_flat=times[1],
+                    median_ms_per_tensor=float(np.median(times[0])),
+                    median_ms_flat=float(np.median(times[1])), card=smi)
+        say("flat step " + json.dumps(line))
+        check(adam[1] == 2 and adam[0] > 2,
+              f"Adam launches a step: {adam[0]} per-tensor, {adam[1]} flat (want 2)")
+    return launches
+
+
+def phase22_train(smi, tmp):
+    """A flat config1 ``train`` (phase 12's arguments with
+    train.flatten_optimizer, cudnn.deterministic): 48 steps uninterrupted
+    (counts set to 0 just before, read just after), and a run that SIGTERM
+    stops after its first call (sent from inside the loop, as
+    tests/test_torch_loop.py sends it; phase 12 covers the signal from
+    outside) and that is resumed to 48: bit for bit. Its checkpoint served
+    through ``Predictor.from_checkpoint``, equal to the checkpoint's weights
+    served directly. Returns the counted launches."""
+    from action_conditioned_gans_tpu_torch.cli import apply_overrides
+    from action_conditioned_gans_tpu_torch.config import get_preset
+    from action_conditioned_gans_tpu_torch.convert import state_dict_to_flax
+    from action_conditioned_gans_tpu_torch.infer import Predictor
+    from action_conditioned_gans_tpu_torch.utils.metrics import MetricWriter
+
+    flat = ["--set", "train.flatten_optimizer=true"]
+    args = [*LOOP_ARGS, *flat]
+    whole, stopped_dir = os.path.join(tmp, "whole"), os.path.join(tmp, "stopped")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        out = run_cli(["train", *args, "--workdir", whole, "--steps", "48"])
+        launches = read_launches()
+        evals = [r for r in metric_lines(out) if "eval_l2" in r]
+        check_runs("config1 flat train loop", launches,
+                   {"config1 flat step": 48, "config1 serving": len(evals)})
+        tick = MetricWriter.tick
+
+        def tick_and_term(self):
+            tick(self)
+            if not fired:
+                fired.append(True)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        fired, MetricWriter.tick = [], tick_and_term
+        try:
+            out = run_cli(["train", *args, "--workdir", stopped_dir, "--steps", "48"])
+        finally:
+            MetricWriter.tick = tick
+        stopped = [int(line.split("at step ")[1].split()[0]) for line in out.splitlines()
+                   if "SIGTERM received" in line]
+        check(len(stopped) == 1 and checkpoint_steps(stopped_dir) == stopped,
+              f"the SIGTERM run: {stopped}, checkpoints {checkpoint_steps(stopped_dir)}")
+        stop = stopped[0]
+        check(stop < 48, f"the SIGTERM run stopped at {stop}, past the compared step 48")
+        resumed = run_cli(["train", *args, "--workdir", stopped_dir, "--steps", "48"])
+        check(f"resumed from checkpoint at step {stop}" in resumed,
+              f"the flat run did not resume at {stop}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = final_params(whole, 48), final_params(stopped_dir, 48)
+    check(a["g_opt/mu"].dim() == 1, "the flat checkpoint holds per-tensor moments")
+    same, max_diff, where = compare_states(a, b)
+    say(f"flat train: SIGTERM at step {stop}, resumed to 48, against 48 uninterrupted, "
+        f"cudnn.deterministic: bit-identical {same}, max |d| {max_diff:.3e} at {where}")
+    check(same, f"the resumed flat run differs: {max_diff:.3e} at {where}")
+    cfg = apply_overrides(get_preset("config1"), [args[i + 1] for i, x in enumerate(args)
+                                                  if x == "--set"])
+    served = Predictor.from_checkpoint(cfg, workdir=whole, device="cuda")
+    direct = Predictor(cfg, state_dict_to_flax({k[len("g_params/"):]: v for k, v in a.items()
+                                                if k.startswith("g_params/")}), device="cuda")
+    rng = np.random.default_rng(22)
+    frame = np.tanh(rng.standard_normal((16, 64, 64, 3))).astype(np.float32)
+    action = rng.standard_normal((16, 4)).astype(np.float32)
+    got, want = served.predict(frame, action), direct.predict(frame, action)
+    check(bool(torch.isfinite(got.float()).all()) and torch.equal(got, want),
+          "the flat checkpoint served through Predictor.from_checkpoint differs from its weights")
+    say(f"flat train: step-48 checkpoint served through Predictor.from_checkpoint: predict "
+        f"B=16 finite and equal to its weights served directly ({smi})")
+    return launches
+
+
+def phase22_nccl(tmp):
+    """A world-1 NCCL group in this process: the flat config1 step through
+    the DP path (the flat gradient all-reduced in place) against the step
+    without a group, 3 steps, cudnn.deterministic, bit for bit; the DP
+    steps counted. Returns their launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from action_conditioned_gans_tpu_torch.ops import api
+    from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
+    from action_conditioned_gans_tpu_torch.parallel.mesh import make_mesh
+    from action_conditioned_gans_tpu_torch.train import init_state, make_train_step
+    from action_conditioned_gans_tpu_torch.train.state import state_to_host
+
+    cfg = flat_train_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, steps_per_call=1))
+    batches = [{k: v.cuda() for k, v in b.items()} for b in phase19_batches(cfg, 3, 23)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    trees = {}
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl22.init')}",
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh(cfg.mesh, device="cuda")
+            for name, step in (("none", make_train_step(cfg, device="cuda")),
+                               ("dp", make_dp_train_step(cfg, mesh))):
+                state = init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+                torch.cuda.synchronize()
+                if name == "dp":
+                    reset_launches()
+                for b in batches:
+                    state, _ = step(state, b)
+                torch.cuda.synchronize()
+                if name == "dp":
+                    launches, routes = read_launches(), dict(api.ROUTES)
+                trees[name] = state_to_host(state, cfg)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(trees["dp"]["g_opt"]["mu"].dim() == 1, "the DP state is not flat")
+    same = all(torch.equal(a, b) for tree in ("g_params", "d_params", "g_opt", "d_opt")
+               for a, b in zip(_leaves(trees["none"][tree]), _leaves(trees["dp"][tree])))
+    say(f"flat nccl world 1: 3 flat config1 steps through the DP path against the step without "
+        f"a group, cudnn.deterministic: bit-identical {same}")
+    check(same, "the flat world-1 NCCL DP step differs from the step without a group")
+    check_runs("config1 flat nccl step", launches, {"config1 flat step": 3}, routes)
+    return launches
+
+
+def phase22(smi):
+    """Phase 22: train.flatten_optimizer. Returns the launches of its counted
+    runs and the kernels line's totals for kernel 5."""
+    from action_conditioned_gans_tpu_torch.ops.kernels import build
+
+    t_phase = time.perf_counter()
+    mark = [t_phase]
+
+    def lap(label):
+        now = time.perf_counter()
+        say(f"phase 22 {label} took {now - mark[0]:.1f} s")
+        mark[0] = now
+
+    say(f"phase 22: the flat optimizer, kernel 5 ({smi})")
+    worst = phase22_parity()
+    lap("(a) parity")
+    totals = phase22_times(smi, worst)
+    lap("(a) times")
+    launches = {"config1 flat step": phase22_steps(smi)}
+    lap("(b) steps")
+    with tempfile.TemporaryDirectory(prefix="phase22-", dir=os.path.dirname(build.BUILD_DIR)) as tmp:
+        launches["config1 flat train loop"] = phase22_train(smi, tmp)
+        lap("(c) train")
+        launches["config1 flat nccl step"] = phase22_nccl(tmp)
+        lap("(d) nccl")
+    # `bench` over the flat path (phase 12's bench settings): one JSON line.
+    out = run_cli(["bench", "--preset", "config1", "--set", "train.batch_size=128",
+                   "--set", "train.adam_moment_dtype=bfloat16", "--set", "train.steps_per_call=16",
+                   "--set", "train.flatten_optimizer=true"])
+    line = metric_lines(out)[-1]
+    say(f"flat bench {json.dumps(line)} ({smi})")
+    check(line["device"] == torch.cuda.get_device_name(0) and line["p50_step_latency_ms"] > 0,
+          f"the flat bench line: {line}")
+    lap("(e) bench")
+    say(f"phase 22 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches, totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -4325,7 +4814,8 @@ def main() -> int:
                               ("conv_transpose_norm_act", "conv_wgmma_kernel", 10),
                               ("conv_transpose_norm_act", "narrow_transpose_kernel", 4),
                               ("group_norm_act", "gn_cluster_kernel", 16),
-                              ("gn_act_bwd", "gn_bwd_cluster_kernel", 24)):
+                              ("gn_act_bwd", "gn_bwd_cluster_kernel", 24),
+                              ("adam_flat", "adam_flat_kernel", 8)):
         found = {k: v for k, v in build.ptxas_report(lib).items() if kernel in k}
         check(len(found) == want, f"ptxas reported {len(found)} {kernel} instances in {lib}, want {want}")
         for k, v in sorted(found.items()):
@@ -4420,6 +4910,9 @@ def main() -> int:
     lap("phase 20")
     launches.update(phase21(smi))
     lap("phase 21")
+    flat_launches, totals["adam_flat"] = phase22(smi)
+    launches.update(flat_launches)
+    lap("phase 22")
     check_plans(kernel3_calls, kernel4_calls)
     say(f"card after the runs (clocks.sm, clocks.max.sm, temperature, power.draw): {card_state()}")
 
@@ -4437,6 +4930,8 @@ def main() -> int:
         if name == "gn_act_bwd":  # kernel 4 over the config3 step's calls, beside config1's
             kernels[-1].update({f"config3_step_{k}": config3[k]
                                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+        if name == "adam_flat":  # float32 moments and config5's vectors beside
+            kernels[-1].update({k: v for k, v in t.items() if k.startswith(("f32_", "config5_"))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4447,4 +4942,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--dp-rank"], ["--tp-rank"]):
         sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--adam-launches"]:
+        sys.exit(adam_launches_main())
     sys.exit(main())

@@ -5,9 +5,10 @@ Two ``gloo`` ranks on the CPU (tests/torch_dist_worker.py, one spawn for
 every scenario) each take their rows of the batch, with the draws the JAX
 step makes on that rank (its key folded with the step, then the rank's
 ``axis_index``). Scenarios: GroupNorm, batch norm (moments synced over the
-ranks), scheduled sampling, ``disc_microbatch``, R1, ``remat_rollout``, and
+ranks), scheduled sampling, ``disc_microbatch``, R1, ``remat_rollout``,
 batch norm with R1 (the sync in a double backward) and with remat (the sync
-again in the recompute). Two steps each, held to the JAX step at 1e-5
+again in the recompute), and ``train.flatten_optimizer`` (the flat gradient
+averaged by one all-reduce in place). Two steps each, held to the JAX step at 1e-5
 relative on the metrics and 2e-5 absolute on the parameters (the bars of
 the port's single-device step against ``jit_train_step``), and to the
 port's own step without a group on the whole batch at the reference's DP
@@ -58,6 +59,9 @@ SCENARIOS = {  # name: (train knobs, model knobs)
     "remat": (dict(rollout_length=4, rollout_time_chunk=2, remat_rollout=True), {}),
     "r1_batch_norm": (dict(rollout_length=3, r1_weight=7.0), dict(norm="batch")),
     "remat_batch_norm": (dict(rollout_length=3, remat_rollout=True), dict(norm="batch")),
+    "flatten_optimizer": (dict(flatten_optimizer=True, rollout_length=2, disc_microbatch=2,
+                               grad_clip_norm=0.5, adam_moment_dtype="bfloat16",
+                               log_grad_norms=True), {}),
 }
 DRAWS = ("scheduled_sampling",)  # whose draws depend on the rank
 

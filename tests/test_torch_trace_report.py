@@ -62,8 +62,8 @@ def test_views_of_a_hand_made_trace():
     s = tr.summarize({"traceEvents": EVENTS, "source": "hand"})
     assert (s.steps_per_dispatch, s.dispatches, s.steps) == (2, 1, 2)
     k = s.kernels
-    assert [k[n]["launches"] for n in tr.KERNELS] == [1, 2, 1, 1]
-    assert [k[n]["device_us"] for n in tr.KERNELS] == [30, 20, 5, 9]
+    assert [k[n]["launches"] for n in tr.KERNELS] == [1, 2, 1, 1, 0]
+    assert [k[n]["device_us"] for n in tr.KERNELS] == [30, 20, 5, 9, 0]
     g = s.group_us
     assert g["acgan conv_norm_act (kernel 1)"] == 30 and g["acgan gn_act_bwd (kernel 4)"] == 9
     assert g["cuDNN / cuBLAS conv and GEMM"] == 30 and g["elementwise"] == 7

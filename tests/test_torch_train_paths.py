@@ -2,12 +2,13 @@
 the CPU: each step runs once on the meta device (shapes only, routed as on
 the card) with every kernel wrapper recorded.
 
-* ``chip_smoke.EXPECTED`` (launches of kernels 1-4, kernels 1-2 by
+* ``chip_smoke.EXPECTED`` (launches of kernels 1-5, kernels 1-2 by
   mainloop, routes, kernel-4 calls that read a bfloat16 y) equals what the
   recorded calls give for every path the script holds to it: the config1,
   config2, config3, config4 and config5 steps at the script's sizes and
   overrides, and phase 18's steps (config1 with R1 and with batch norm,
-  config5 with the engine knobs), and the generator calls of config1,
+  config5 with the engine knobs), phase 22's flat step (config1 with
+  ``train.flatten_optimizer``), and the generator calls of config1,
   config1 with batch norm, config4 and config5 serving; and
   ``chip_smoke.EXPECTED_ROUTES``, the other routes each path takes (bare
   convs, the plain route of R1's inner D call, the engines' rewrites and
@@ -38,7 +39,7 @@ from action_conditioned_gans_tpu_torch.cli import apply_overrides
 from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
 from action_conditioned_gans_tpu_torch.ops import api
 from action_conditioned_gans_tpu_torch.ops.common import resolve_groups, same_pad
-from action_conditioned_gans_tpu_torch.ops.kernels import conv, gn_bwd, norm_act
+from action_conditioned_gans_tpu_torch.ops.kernels import adam, conv, gn_bwd, norm_act
 from action_conditioned_gans_tpu_torch.infer import grid_replica
 from action_conditioned_gans_tpu_torch.parallel.dp import make_dp_train_step
 from action_conditioned_gans_tpu_torch.parallel.mesh import Mesh
@@ -57,7 +58,7 @@ def record(run):
     kernel-4 call reads a bfloat16 y on the card when it comes from a split
     layer's GroupNormActFn (the fused blocks keep a float32 y)."""
     calls, real = [], dict(k1=conv.conv_norm_act, k2=conv.conv_transpose_norm_act,
-                           k3=norm_act.group_norm_act, k4=gn_bwd.gn_act_bwd)
+                           k3=norm_act.group_norm_act, k4=gn_bwd.gn_act_bwd, k5=adam.adam_flat)
 
     def k1(x, w, s, b, **kw):
         calls.append(Call("k1", tuple(x.shape), tuple(w.shape), kw["stride"], kw["kind"],
@@ -80,14 +81,19 @@ def record(run):
                           y.dtype == torch.bfloat16))
         return real["k4"](y, *args, **kw)
 
+    def k5(p, *args, **kw):
+        calls.append(Call("k5", tuple(p.shape), None, None, None, None, None, False))
+        return real["k5"](p, *args, **kw)
+
     conv.conv_norm_act, conv.conv_transpose_norm_act = k1, k2
-    norm_act.group_norm_act, gn_bwd.gn_act_bwd = k3, k4
+    norm_act.group_norm_act, gn_bwd.gn_act_bwd, adam.adam_flat = k3, k4, k5
     api.reset_routes()
     try:
         run()
     finally:
         conv.conv_norm_act, conv.conv_transpose_norm_act = real["k1"], real["k2"]
         norm_act.group_norm_act, gn_bwd.gn_act_bwd = real["k3"], real["k4"]
+        adam.adam_flat = real["k5"]
     return calls, dict(api.ROUTES)
 
 
@@ -190,7 +196,7 @@ def mainloop(c):
 def counts(calls, routes):
     """The calls in EXPECTED's layout."""
     names = dict(k1="conv_norm_act", k2="conv_transpose_norm_act", k3="group_norm_act",
-                 k4="gn_act_bwd")
+                 k4="gn_act_bwd", k5="adam_flat")
     launches = {n: sum(1 for c in calls if c.kernel == k) for k, n in names.items()}
     by = collections.defaultdict(collections.Counter)
     for c in calls:
@@ -211,6 +217,7 @@ STEP_PATHS = {
     "config4 step": lambda: smoke_config("config4", chip_smoke.CONFIG4_OVERRIDES),
     "config5 step": lambda: smoke_config("config5", chip_smoke.CONFIG5_OVERRIDES),
     **{path: (lambda path=path: chip_smoke.phase18_config(path)) for path in chip_smoke.PHASE18_OVERRIDES},
+    "config1 flat step": lambda: chip_smoke.flat_train_config(),
 }
 
 

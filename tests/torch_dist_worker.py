@@ -119,8 +119,11 @@ def _steps(job: dict, rank: int) -> None:
         for tree in ("g_params", "d_params"):
             out.update({f"{tree}/{k}": v.numpy() for k, v in getattr(state, tree).items()})
         for tree in ("g_opt", "d_opt"):
-            out.update({f"{tree}/mu/{k}": v.float().numpy()
-                        for k, v in getattr(state, tree).mu.items()})
+            mu = getattr(state, tree).mu
+            if isinstance(mu, torch.Tensor):  # train.flatten_optimizer's one vector
+                out[f"{tree}/mu"] = mu.float().numpy()
+            else:
+                out.update({f"{tree}/mu/{k}": v.float().numpy() for k, v in mu.items()})
         np.savez(os.path.join(job["dir"], f"{name}.rank{rank}.npz"), **out)
 
 
