@@ -37,6 +37,7 @@ import torch
 
 from action_conditioned_gans_tpu_torch.config import Config, ModelConfig, resolve_device
 from action_conditioned_gans_tpu_torch.convert import flax_to_state_dict, flatten_flax, state_dict_to_flax
+from action_conditioned_gans_tpu_torch.utils import profiling
 
 _META_KEY = "__model_config__"
 # Knobs that say how a host executes the model, not what the model is: from_npz
@@ -60,14 +61,17 @@ def rollout_scan(
     """Autoregressive rollout: ``apply_fn(prev, action, state)`` over T.
 
     ``actions`` (B, T, A), ``states`` (B, T, S) or None -> (B, T, H, W, C).
-    Each prediction is fed back cast to the previous frame's dtype.
+    Each prediction is fed back cast to the previous frame's dtype. Spans
+    ``rollout.steps`` (the T calls and casts) and ``rollout.stack``.
     """
     prev, preds = frame0, []
-    for t in range(actions.shape[1]):
-        pred = apply_fn(prev, actions[:, t], None if states is None else states[:, t])
-        preds.append(pred)
-        prev = pred.to(prev.dtype)
-    return torch.stack(preds, dim=1)
+    with profiling.span("rollout.steps"):
+        for t in range(actions.shape[1]):
+            pred = apply_fn(prev, actions[:, t], None if states is None else states[:, t])
+            preds.append(pred)
+            prev = pred.to(prev.dtype)
+    with profiling.span("rollout.stack"):
+        return torch.stack(preds, dim=1)
 
 
 def shard_batches(devices: Sequence, *arrays) -> List[tuple]:
@@ -329,7 +333,17 @@ class Predictor:
                 self.cfg.model, self.device, frame, action, state, time=False))
 
     def rollout(self, frame0, actions, states=None) -> torch.Tensor:
-        """Autoregressive T-step prediction, (B, T, H, W, C)."""
-        with torch.inference_mode():
-            return self._call(rollout_scan, model_inputs(
-                self.cfg.model, self.device, frame0, actions, states, time=True))
+        """Autoregressive T-step prediction, (B, T, H, W, C). One span
+        ``rollout`` a request (attributes ``B``, ``T`` and ``dispatches``, the
+        conv block calls it made: ``ops.common.conv_blocks``), its children
+        ``rollout.inputs`` (``model_inputs``) and :func:`rollout_scan`'s."""
+        from action_conditioned_gans_tpu_torch.ops.common import conv_blocks
+
+        with torch.inference_mode(), profiling.span("rollout", unit=True) as span:
+            blocks = conv_blocks()
+            with profiling.span("rollout.inputs"):
+                args = model_inputs(self.cfg.model, self.device, frame0, actions, states,
+                                    time=True)
+            out = self._call(rollout_scan, args)
+            span.set(B=args[1].shape[0], T=args[1].shape[1], dispatches=conv_blocks() - blocks)
+            return out

@@ -5,7 +5,8 @@ the GroupNorm group-count rule, and the per-(sample, group) GroupNorm that
 the fused kernels compute in their epilogue; and of ``ops/gn.py``'s
 ``act_bwd``, the activation cotangent rebuilt from the saved output. Also
 ``ROUTES``, the route counts of ``ops/api.py`` (kept here so that
-``ops/wgrad.py`` and the kernel wrappers count into it too).
+``ops/wgrad.py`` and the kernel wrappers count into it too), and
+``conv_blocks``, the conv block calls they add up to.
 """
 
 from __future__ import annotations
@@ -17,6 +18,12 @@ ACTIVATIONS = ("none", "lrelu", "relu", "tanh")
 # The routes the layer ops took (``ops/api.py`` documents each key).
 ROUTES = {"fused": 0, "split": 0, "group_plain": 0, "bare": 0, "plain": 0, "s2d": 0,
           "subpixel": 0, "patches": 0}
+
+
+def conv_blocks() -> int:
+    """The conv block calls so far: every one counts once in "fused",
+    "split" or "plain"."""
+    return ROUTES["fused"] + ROUTES["split"] + ROUTES["plain"]
 
 
 def apply_act(y: torch.Tensor, act: str, leak: float) -> torch.Tensor:

@@ -60,7 +60,6 @@ from action_conditioned_gans_tpu_torch.train.state import (
 )
 from action_conditioned_gans_tpu_torch.utils.checkpoint import CheckpointManager
 from action_conditioned_gans_tpu_torch.utils.metrics import MetricWriter
-from action_conditioned_gans_tpu_torch.utils.profiling import annotate
 
 
 def crossed(before: int, after: int, every: int) -> bool:
@@ -233,11 +232,8 @@ def train(
                 stop_trace()
                 profile_stop = -1
             batch = dataset.batch_at(call)
-            if profiler is None:
-                state, metrics = step_fn(state, batch)
-            else:  # a span a call, for profile-report's steps per call
-                with annotate(f"acgan:train_call[k={k}]"):
-                    state, metrics = step_fn(state, batch)
+            # The step's own spans name the call and its steps in the trace.
+            state, metrics = step_fn(state, batch)
             before, done = done, done + k
             call += 1
             if crossed(before, done, t.log_every) or before == start:

@@ -64,7 +64,9 @@ the plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -92,6 +94,7 @@ from action_conditioned_gans_tpu_torch.train.state import (
     global_norm,
     make_optimizers,
 )
+from action_conditioned_gans_tpu_torch.utils import profiling
 
 
 def _fold_time(x):
@@ -296,10 +299,12 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         return gx.float().square().sum(dim=tuple(range(1, gx.dim()))).mean()
 
     def train_step(state: TrainState, batch, randoms: Optional[StepRandoms] = None):
-        with api.batch_stats_group(group), api.model_group(model_group):
+        with api.batch_stats_group(group), api.model_group(model_group), profiling.span(
+                "step", unit=True, device=dev):
             return one_step(state, batch, randoms)
 
     def one_step(state: TrainState, batch, randoms: Optional[StepRandoms]):
+        profiling.phase("inputs")
         where = next(iter(state.g_params.values())).device
         if where.type != dev.type or dev.index not in (None, where.index):
             raise ValueError(f"the train state is on {where}, the step on {dev}")
@@ -323,6 +328,7 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         g_norm, d_norm = norm_of(g_mask), norm_of(d_mask)
 
         # One generator rollout, kept with its graph for G's update.
+        profiling.phase("g_rollout")
         g_leaves = leaves(state.g_params)
         if t.scheduled_sampling:
             preds = rollout_generator(g_apply, g_leaves, frames, actions, states,
@@ -334,6 +340,7 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
                                            remat=t.remat_rollout)
         flat_preds = _fold_time(preds)
 
+        profiling.phase("d_update")
         cond_frames = _fold_time(frames[:, :horizon])
         real_next = _fold_time(frames[:, 1:])
         flat_actions = _fold_time(actions)
@@ -358,7 +365,9 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         # D update(s) on the detached fakes; real and fake share one D call
         # per chunk (two under batch norm); loss, accuracies, R1 and gradient
         # accumulate as x / nc.
-        for _ in range(max(t.disc_steps, 1)):
+        for i in range(max(t.disc_steps, 1)):
+            if i:
+                profiling.phase("d_update")
             d_leaves = leaves(state.d_params)
             d_loss = real_acc = fake_acc = d_r1 = d_grads = None
             for rl, fk, cr, cf, ac, st in zip(*map(chunks, (
@@ -388,12 +397,14 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
                     torch._foreach_add_(d_grads, grads)
                 d_loss = mean_of(d_loss, loss)
                 real_acc, fake_acc = mean_of(real_acc, accs[0]), mean_of(fake_acc, accs[1])
-            d_tx.update_(state.d_params, mean_replicated(mean_over_ranks(d_grads), d_mask),
-                         state.d_opt, norm=d_norm)
+            d_grads = mean_replicated(mean_over_ranks(d_grads), d_mask)
+            profiling.phase("d_adam")
+            d_tx.update_(state.d_params, d_grads, state.d_opt, norm=d_norm)
 
         # G head against the updated, frozen D: differentiate w.r.t. the
         # predictions only, chunk by chunk, then chain that cotangent through
         # G's forward (preds.backward(d_preds), with the gradients returned).
+        profiling.phase("g_grad")
         d_frozen = {k: v.detach() for k, v in state.d_params.items()}
         g_loss = g_adv = g_recon = None
         d_preds = []
@@ -412,10 +423,12 @@ def make_train_step(cfg: Config, device=None, seed: Optional[int] = None, group=
         g_grads = mean_replicated(mean_over_ranks(gathered(g_leaves, torch.autograd.grad(
             flat_preds, list(g_leaves.values()), d_preds[0] if nc == 1 else torch.cat(d_preds)))),
             g_mask)
+        profiling.phase("g_adam")
         g_tx.update_(state.g_params, g_grads, state.g_opt, norm=g_norm)
         if t.ema_decay > 0:
             ema_update_(state.g_ema, state.g_params, t.ema_decay)
 
+        profiling.phase("metrics")
         metrics = {
             "d_loss": d_loss, "g_loss": g_loss, "g_adv": g_adv, "g_recon": g_recon,
             "d_real_acc": real_acc, "d_fake_acc": fake_acc,
@@ -442,11 +455,25 @@ def make_multi_train_step(cfg: Config, device=None, seed: Optional[int] = None, 
     LAST step's metrics (the JAX package's ``lax.scan`` of the step; each
     step draws from ``seed`` and its own step number). With k <= 1 this is
     the single step over an unstacked batch. ``group``, ``tp``: as
-    :func:`make_train_step`."""
+    :func:`make_train_step`.
+
+    Each call is one span ``train_call[k=K]`` (``utils/profiling.py``; the
+    ``acgan:train_call[k=K]`` of a trace, by which ``profile-report``
+    counts steps), on CUDA with the caching allocator's device
+    allocations, frees and retries over the call (:func:`_call_span`), and
+    one ``step`` span a step, split into its phases: ``inputs``,
+    ``g_rollout``, ``d_update``, ``d_adam``, ``g_grad``, ``g_adam``,
+    ``metrics``."""
     step = make_train_step(cfg, device, seed, group, tp)
+    dev = resolve_device(device)
     k = cfg.train.steps_per_call
     if k <= 1:
-        return step
+        @functools.wraps(step)
+        def single(state: TrainState, batch, *randoms):
+            with _call_span(dev, 1):
+                return step(state, batch, *randoms)
+
+        return single
 
     def multi(state: TrainState, batches):
         for key, leaf in batches.items():
@@ -454,8 +481,31 @@ def make_multi_train_step(cfg: Config, device=None, seed: Optional[int] = None, 
                 raise ValueError(f"batch leaf {key!r} has {leaf.shape[0]} steps on its leading "
                                  f"axis, want steps_per_call={k}")
         metrics = None
-        for i in range(k):
-            state, metrics = step(state, {key: leaf[i] for key, leaf in batches.items()})
+        with _call_span(dev, k):
+            for i in range(k):
+                state, metrics = step(state, {key: leaf[i] for key, leaf in batches.items()})
         return state, metrics
 
     return multi
+
+
+# The caching allocator's counts a training call's span records: attribute
+# name -> ``torch.cuda.memory_stats`` key (cudaMalloc and cudaFree calls,
+# and frees-and-retries after a failed allocation).
+ALLOCATOR_COUNTS = {"device_alloc": "num_device_alloc", "device_free": "num_device_free",
+                    "alloc_retries": "num_alloc_retries"}
+
+
+@contextlib.contextmanager
+def _call_span(dev: torch.device, k: int):
+    """The span ``train_call[k=K]`` of one call; on CUDA it gains the
+    change of each of ``ALLOCATOR_COUNTS`` over the call."""
+    with profiling.span(f"train_call[k={k}]", k=k) as span:
+        if dev.type != "cuda" or not profiling.ENABLED:
+            yield
+            return
+        # The nested form skips memory_stats' flattening of every statistic.
+        before = torch.cuda.memory_stats_as_nested_dict(dev)
+        yield
+        after = torch.cuda.memory_stats_as_nested_dict(dev)
+        span.set(**{a: after.get(s, 0) - before.get(s, 0) for a, s in ALLOCATOR_COUNTS.items()})

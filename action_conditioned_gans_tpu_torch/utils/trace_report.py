@@ -11,6 +11,17 @@ cuBLAS convolutions and GEMMs, elementwise, copies and memsets, other); the
 steps a call (the spans' K) and a step's share of each; and the device's
 busy share of the traced window.
 
+Two views by the program's own ``acgan:`` spans (``utils/profiling.py``:
+the call, each step and its phases, a serving request and its parts):
+the device's idle gaps, each named by the innermost ``acgan:`` span open
+on the host when it began (where the host was while the device waited);
+and device time by phase and group, each device event charged to the
+innermost ``acgan:`` span open on its host thread when it was launched
+(its runtime event of the same ``correlation``), or on any thread where
+its own holds none (autograd's engine launches the backward from threads
+of its own), so that copies and memsets, say, are split by the phase that
+issued them.
+
 Kernels 1 and 2 share their GEMM and GroupNorm epilogue kernels'
 names; the GEMM's first template argument (``TRANSPOSE``) tells them apart,
 and an epilogue kernel belongs to the last conv kernel before it on its
@@ -29,13 +40,14 @@ Consumed by ``python -m action_conditioned_gans_tpu_torch profile-report``.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
 import glob
 import json
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 # H100 SXM peaks (NVIDIA's data sheet), as chip_smoke.py and bench.py take them.
 PEAK_BF16_FLOPS = 989e12
@@ -51,6 +63,9 @@ _PACK = re.compile(r"pack_weights_kernel<(true|false)>")
 _LIBRARY = re.compile(r"cudnn|cutlass|xmma|gemm|cublas|implicit_convolve|winograd|dgrad|wgrad|"
                       r"fprop|nhwcAddPadding|nchwToNhwc|nhwcToNchw|sm\d\d_", re.IGNORECASE)
 _CALL = re.compile(r"^acgan:train_call\[k=(\d+)\]$")
+_SPAN_PREFIX = "acgan:"
+NO_SPAN = "no acgan span"
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
 @dataclasses.dataclass
@@ -78,6 +93,14 @@ class Summary:
     # kernels 1-5: launches, device_us, and roof_us summed over the
     # roof_launches whose shapes the trace holds (None when it holds none)
     kernels: Dict[str, Dict[str, float]]
+    # idle µs between the first and the last device event by the innermost
+    # acgan: span open when each gap began (NO_SPAN outside them), and the
+    # longest gaps, longest first
+    idle_us_by_span: Dict[str, float] = dataclasses.field(default_factory=dict)
+    idle_gaps: List[Tuple[str, float]] = dataclasses.field(default_factory=list)
+    # device µs by the acgan: span that launched each event (without the
+    # prefix; NO_SPAN where none was open or no launch matched), by group
+    phase_group_us: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
 
     @property
     def steps(self) -> Optional[int]:
@@ -202,6 +225,54 @@ def _union_us(spans) -> float:
     return total
 
 
+class _Spans:
+    """The trace's ``acgan:`` host spans by thread: the innermost one open
+    at a time."""
+
+    def __init__(self, events: List[dict]):
+        self.by_tid: Dict[object, List[tuple]] = collections.defaultdict(list)
+        for e in events:
+            if e.get("cat") == "user_annotation" and e.get("name", "").startswith(_SPAN_PREFIX):
+                ts = float(e["ts"])
+                self.by_tid[e.get("tid")].append((ts, ts + float(e.get("dur", 0.0)),
+                                                  e["name"][len(_SPAN_PREFIX):]))
+        self.starts = {}
+        for tid, spans in self.by_tid.items():
+            spans.sort(key=lambda s: (s[0], -s[1]))  # of two that start together, inner last
+            self.starts[tid] = [s[0] for s in spans]
+
+    def _inner(self, tid, at: float) -> Optional[tuple]:
+        spans = self.by_tid.get(tid, [])
+        # Spans on one thread nest: the latest-starting one that holds ``at``.
+        for i in range(bisect.bisect_right(self.starts.get(tid, []), at) - 1, -1, -1):
+            if spans[i][1] > at:
+                return spans[i]
+        return None
+
+    def at(self, at: float, tid=None) -> str:
+        """The innermost span open at ``at`` on thread ``tid``; where there
+        is none (autograd's engine launches a backward from a thread of its
+        own while the span's thread waits in it), or with no ``tid``, the
+        shortest of those open on any thread."""
+        found = self._inner(tid, at) if tid is not None else None
+        if found is None:
+            inner = [s for s in (self._inner(t, at) for t in self.by_tid) if s is not None]
+            found = min(inner, key=lambda s: s[1] - s[0], default=None)
+        return found[2] if found else NO_SPAN
+
+
+def _gaps(spans, lo: float, hi: float) -> List[Tuple[float, float]]:
+    """The intervals of [lo, hi] that no span covers."""
+    gaps, at = [], lo
+    for start, stop in sorted(spans):
+        if start > at:
+            gaps.append((at, min(start, hi)))
+        at = max(at, stop)
+        if at >= hi:
+            break
+    return [(a, b) for a, b in gaps if b > a]
+
+
 def summarize(trace: dict) -> Summary:
     """The views of one trace (see the module's docstring)."""
     events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
@@ -221,7 +292,9 @@ def summarize(trace: dict) -> Summary:
     kernels = {name: {"launches": 0, "device_us": 0.0, "roof_us": 0.0, "roof_launches": 0}
                for name in KERNELS}
     last_conv: Dict[object, str] = {}
-    for e in sorted(device, key=lambda e: (str(e.get("args", {}).get("stream")), e["ts"])):
+    device.sort(key=lambda e: (str(e.get("args", {}).get("stream")), e["ts"]))
+    device_groups = []  # (group, µs) of each event of ``device``
+    for e in device:
         name, dur = e["name"], float(e.get("dur", 0.0))
         owner = _owner(name) if e.get("cat") == "kernel" else None
         stream = e.get("args", {}).get("stream")
@@ -230,6 +303,7 @@ def summarize(trace: dict) -> Summary:
         elif owner in ("conv_norm_act", "conv_transpose_norm_act"):
             last_conv[stream] = owner
         group = _group(e, owner)
+        device_groups.append((group, dur))
         row = by_row[(name, group)]
         row[0] += 1
         row[1] += dur
@@ -250,6 +324,22 @@ def summarize(trace: dict) -> Summary:
 
     spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in device]
     busy = _union_us(spans)
+    named = _Spans(events)
+    idle_by_span: Dict[str, float] = collections.Counter()
+    gaps = []
+    if spans:
+        for a, b in _gaps(spans, min(s for s, _ in spans), max(s for _, s in spans)):
+            name = named.at(a)
+            idle_by_span[name] += b - a
+            gaps.append((name, b - a))
+    gaps.sort(key=lambda g: -g[1])
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in _LAUNCH_CATS and "correlation" in e.get("args", {})}
+    by_phase: Dict[str, Dict[str, float]] = collections.defaultdict(collections.Counter)
+    for e, (group, dur) in zip(device, device_groups):
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        phase = NO_SPAN if launch is None else named.at(float(launch["ts"]), launch.get("tid"))
+        by_phase[phase][group] += dur
     edges = spans + [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in calls]
     window = (max(s for _, s in edges) - min(s for s, _ in edges)) if edges else 0.0
     rows = [Row(name=name, group=group, count=c, device_us=t,
@@ -259,7 +349,9 @@ def summarize(trace: dict) -> Summary:
     return Summary(source=trace.get("source", ""), steps_per_dispatch=k,
                    dispatches=len(calls) if calls else None, window_us=window, busy_us=busy,
                    busy_share=busy / window if window else 0.0, rows=rows,
-                   group_us={g: groups.get(g, 0.0) for g in GROUPS}, kernels=kernels)
+                   group_us={g: groups.get(g, 0.0) for g in GROUPS}, kernels=kernels,
+                   idle_us_by_span=dict(idle_by_span), idle_gaps=gaps[:10],
+                   phase_group_us={p: dict(g) for p, g in by_phase.items()})
 
 
 def print_summary(s: Summary, top_n: int = 30) -> None:
@@ -283,3 +375,16 @@ def print_summary(s: Summary, top_n: int = 30) -> None:
         roof = (f"{k['roof_us'] / steps:.1f} over {k['roof_launches']}"
                 if k["roof_us"] is not None else "null")
         print(f"  {name:24s} {k['launches'] / steps:7.2f} {k['device_us'] / steps:10.1f}  {roof}")
+    if s.idle_us_by_span:
+        idle = sum(s.idle_us_by_span.values())
+        print(f"\nidle gaps per step by the acgan: span open when each began (us; {idle / steps:.1f}"
+              f" in all); longest: " + ", ".join(f"{n} {v:.1f}" for n, v in s.idle_gaps[:5]))
+        for name, v in sorted(s.idle_us_by_span.items(), key=lambda kv: -kv[1]):
+            print(f"  {v / steps:10.1f}  {name}")
+    if s.phase_group_us:
+        shown = [g for g in GROUPS if any(p.get(g) for p in s.phase_group_us.values())]
+        print("\ndevice time per step by the acgan: span that launched it, by group (us):")
+        print(f"{'total':>10}  " + "  ".join(f"{g[:14]:>14}" for g in shown) + "  span")
+        for name, g in sorted(s.phase_group_us.items(), key=lambda kv: -sum(kv[1].values())):
+            print(f"{sum(g.values()) / steps:10.1f}  "
+                  + "  ".join(f"{g.get(x, 0.0) / steps:14.1f}" for x in shown) + f"  {name}")

@@ -1,0 +1,11 @@
+"""Device milliseconds a training step spends in D's update: the augmentation,
+D's forward and backward over the chunks and the gradient means
+(``step.d_update``), by the phase's CUDA events in the program's ``step``
+span, the median over the steps it timed (``benchmark/program_spans.py``)."""
+
+from benchmark import program_spans as ps
+
+
+def read(run):
+    return ps.median_per_unit(run, ps.timed("step"),
+                              lambda root, unit: ps.device_ms(unit, "step.d_update"))

@@ -147,15 +147,82 @@ def test_a_cpu_train_trace_has_no_device_kernel(tmp_path, capsys):
 
 def test_profiling_trace_annotate_and_step_timer(tmp_path):
     """``utils/profiling``: a trace of the enclosed work written where
-    ``load_trace`` finds it, an ``annotate`` span in it, and a StepTimer."""
+    ``load_trace`` finds it, with an ``acgan:`` span of each ``span`` in it,
+    and the spans' records, which time the blocks."""
     from action_conditioned_gans_tpu_torch.utils import profiling
 
-    timer = profiling.StepTimer("cpu")
-    assert timer.p50() is None
+    profiling.reset()
     with profiling.trace(str(tmp_path), device="cpu"):
         for _ in range(3):
-            with timer.measure(), profiling.annotate("acgan:train_call[k=4]"):
+            with profiling.span("train_call[k=4]", k=4):
                 torch.ones(8, 8) @ torch.ones(8, 8)
-    assert len(timer.samples) == 3 and timer.p50() == sorted(timer.samples)[1]
+    recs = profiling.records()
+    assert [(r.name, r.attrs) for r in recs] == [("train_call[k=4]", {"k": 4})] * 3
+    assert all(r.host_ms > 0 and r.device_ms is None for r in recs)
     s = tr.summarize(tr.load_trace(str(tmp_path)))
     assert (s.dispatches, s.steps_per_dispatch, s.steps, s.rows) == (3, 4, 12, [])
+
+
+def host_span(name, ts, dur, tid=1):
+    return {"ph": "X", "cat": "user_annotation", "name": name, "ts": ts, "dur": dur, "pid": 1,
+            "tid": tid, "args": {}}
+
+
+def launch(ts, corr, tid=1):
+    return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts, "dur": 1,
+            "pid": 1, "tid": tid, "args": {"correlation": corr}}
+
+
+def device_event(name, ts, dur, corr, cat="kernel"):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 0, "tid": 7,
+            "args": {"stream": 7, "correlation": corr}}
+
+
+PHASE_EVENTS = [
+    host_span("acgan:train_call[k=1]", 0, 300),
+    host_span("acgan:step", 0, 200),
+    host_span("acgan:step.g_rollout", 0, 50),
+    host_span("acgan:step.d_update", 50, 70),
+    host_span("acgan:step.g_adam", 120, 80),
+    host_span("bench:call", 0, 300),  # not the program's: names nothing
+    launch(10, 1), launch(60, 2, tid=2), launch(130, 3), launch(250, 4),
+    # The device runs behind the host: each event after its launch.
+    device_event("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", 20, 20, 1),
+    device_event("Memcpy DtoD (Device -> Device)", 70, 10, 2, cat="gpu_memcpy"),
+    device_event("void at::native::vectorized_elementwise_kernel<4, at::native::AddFunctor<float>>",
+                 140, 10, 3),
+    device_event("Memset (Device)", 150, 5, 99, cat="gpu_memset"),  # no launch matched
+    device_event("some_other_kernel", 260, 10, 4),
+]
+
+
+def test_idle_gaps_named_and_device_time_split_by_acgan_span():
+    s = tr.summarize({"traceEvents": PHASE_EVENTS})
+    # Gaps 40-70, 80-140 and 155-260, each named by the innermost acgan:
+    # span open on the host when it began.
+    assert s.idle_us_by_span == {"step.g_rollout": 30, "step.d_update": 60, "step.g_adam": 105}
+    assert s.idle_gaps == [("step.g_adam", 105), ("step.d_update", 60), ("step.g_rollout", 30)]
+    # Each event charged to the innermost span open at its launch (the
+    # launch at 250 falls in the call span alone; the one at 60, from a
+    # thread with no span, like autograd's engine, to the span open on the
+    # other); an event with no launch matched to NO_SPAN.
+    assert s.phase_group_us == {
+        "step.g_rollout": {"cuDNN / cuBLAS conv and GEMM": 20},
+        "step.d_update": {"copies and memsets": 10},
+        "step.g_adam": {"elementwise": 10},
+        "train_call[k=1]": {"other": 10},
+        tr.NO_SPAN: {"copies and memsets": 5},
+    }
+    assert sum(sum(g.values()) for g in s.phase_group_us.values()) == sum(s.group_us.values())
+
+
+def test_the_report_prints_the_two_views(tmp_path, capsys):
+    path = tmp_path / "trace_step1.json"
+    path.write_text(json.dumps({"traceEvents": PHASE_EVENTS}))
+    assert cli.main(["profile-report", "--out", str(path)]) == 0
+    text = capsys.readouterr().out
+    assert "idle gaps per step by the acgan: span" in text
+    assert "device time per step by the acgan: span that launched it" in text
+    lines = [line.split() for line in text.splitlines()]
+    assert ["105.0", "step.g_adam"] in lines
+    assert ["20.0", "20.0", "0.0", "0.0", "0.0", "step.g_rollout"] in lines
