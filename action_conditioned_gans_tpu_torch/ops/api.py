@@ -41,7 +41,10 @@ outside the plain route, "bare" per split conv on kernel 1 or 2, "plain"
 per conv block on the plain route, "group_plain" per GroupNorm that
 :func:`norm_act` sends to the plain composite because it lies off the
 standalone kernel's envelope, "s2d" and "subpixel" per conv rewritten by
-its engine, and "patches" per im2col weight gradient computed.
+its engine, "patches" per im2col weight gradient computed, and "pad_copy"
+per split conv whose plain conv still writes out its padded input (an odd
+size, which SAME pads more after than before; a symmetric pad is the
+convolution's own, ``reference.conv2d``).
 
 The tensor's device decides the rest: a CUDA tensor goes to the Hopper
 kernel of the op or the call raises; a CPU tensor takes the plain version.
@@ -167,6 +170,8 @@ def _split_conv(x, w, stride, transpose, wgrad, deconv, conv):
         ROUTES["bare"] += 1
         fn = _conv.conv_transpose_norm_act if transpose else _conv.conv_norm_act
         return fn(x, w, None, None, stride=stride, kind="none", groups=1, act="none", wgrad=wgrad)
+    if not transpose and not reference.pads_inside(x.shape, w.shape, stride):
+        ROUTES["pad_copy"] += 1
     return _plain_conv(x, w, stride, transpose, wgrad, deconv, conv)
 
 

@@ -17,7 +17,7 @@ ACTIVATIONS = ("none", "lrelu", "relu", "tanh")
 
 # The routes the layer ops took (``ops/api.py`` documents each key).
 ROUTES = {"fused": 0, "split": 0, "group_plain": 0, "bare": 0, "plain": 0, "s2d": 0,
-          "subpixel": 0, "patches": 0}
+          "subpixel": 0, "patches": 0, "pad_copy": 0}
 
 
 def conv_blocks() -> int:

@@ -25,14 +25,31 @@ from action_conditioned_gans_tpu_torch.ops.common import (
 from action_conditioned_gans_tpu_torch.parallel import comm
 
 
+def same_pads(x_shape, w_shape, stride: int) -> tuple:
+    """The SAME pads (top, bottom, left, right) of an NHWC x HWIO conv."""
+    _, plo, phi = same_pad(x_shape[1], w_shape[0], stride)
+    _, qlo, qhi = same_pad(x_shape[2], w_shape[1], stride)
+    return plo, phi, qlo, qhi
+
+
+def pads_inside(x_shape, w_shape, stride: int) -> bool:
+    """Whether :func:`conv2d` hands its SAME pad to the convolution itself:
+    equal pads before and after on both axes. Else it writes the padded
+    input out first."""
+    plo, phi, qlo, qhi = same_pads(x_shape, w_shape, stride)
+    return plo == phi and qlo == qhi
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
-    """SAME conv, NHWC x HWIO -> NHWC. Odd sizes pad more after than before,
-    as XLA does, hence the explicit pad."""
-    kh, kw = w.shape[0], w.shape[1]
-    _, plo, phi = same_pad(x.shape[1], kh, stride)
-    _, qlo, qhi = same_pad(x.shape[2], kw, stride)
-    xn = F.pad(x.permute(0, 3, 1, 2), (qlo, qhi, plo, phi))
-    y = F.conv2d(xn, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
+    """SAME conv, NHWC x HWIO -> NHWC. A symmetric pad is the convolution's
+    own ``padding``, over the channels-last view of ``x`` (no padded copy,
+    forward or backward); odd sizes pad more after than before, as XLA does,
+    hence an explicit pad there."""
+    plo, phi, qlo, qhi = same_pads(x.shape, w.shape, stride)
+    xn = x.permute(0, 3, 1, 2)
+    if (plo, qlo) != (phi, qhi):
+        xn, plo, qlo = F.pad(xn, (qlo, qhi, plo, phi)), 0, 0
+    y = F.conv2d(xn, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride, padding=(plo, qlo))
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from action_conditioned_gans_tpu_torch.ops import reference
-from action_conditioned_gans_tpu_torch.ops.common import ROUTES, same_pad
+from action_conditioned_gans_tpu_torch.ops.common import ROUTES
 
 
 def _windows(t: torch.Tensor, k: int, stride: int, pads: Sequence[int]) -> torch.Tensor:
@@ -59,8 +59,7 @@ def patches_dw(x: torch.Tensor, dy: torch.Tensor, w_shape: Sequence[int], stride
         p = _windows(dy, kh, stride, (1, 1, 1, 1))  # (B*H*W, Cout*16)
         dwt = p.T @ x.reshape(-1, cin)  # (Cout*16, Cin)
         return dwt.reshape(cout, kh, kw, cin).flip(1, 2).permute(1, 2, 3, 0)
-    _, plo, phi = same_pad(x.shape[1], kh, stride)
-    _, qlo, qhi = same_pad(x.shape[2], kw, stride)
+    plo, phi, qlo, qhi = reference.same_pads(x.shape, w_shape, stride)
     p = _windows(x, kh, stride, (plo, phi, qlo, qhi))  # (B*Ho*Wo, Cin*kh*kw)
     dw = p.T @ dy.reshape(-1, cout)  # (Cin*kh*kw, Cout)
     return dw.reshape(cin, kh, kw, cout).permute(1, 2, 0, 3)
@@ -71,8 +70,7 @@ def _conv_dx(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int) -> torch.T
     input's extent, cropped back."""
     kh, kw = w.shape[0], w.shape[1]
     h, wd = x_shape[1], x_shape[2]
-    _, plo, phi = same_pad(h, kh, stride)
-    _, qlo, qhi = same_pad(wd, kw, stride)
+    plo, phi, qlo, qhi = reference.same_pads(x_shape, w.shape, stride)
     ho, wo = dy.shape[1], dy.shape[2]
     extra = (h + plo + phi - ((ho - 1) * stride + kh), wd + qlo + qhi - ((wo - 1) * stride + kw))
     dxp = F.conv_transpose2d(dy.permute(0, 3, 1, 2), w.to(dy.dtype).permute(3, 2, 0, 1),

@@ -20,6 +20,7 @@ from action_conditioned_gans_tpu.ops import pallas as P
 from action_conditioned_gans_tpu_torch.config import PRESETS, get_preset
 from action_conditioned_gans_tpu_torch.models import Discriminator, Generator
 from action_conditioned_gans_tpu_torch.ops import api, envelope
+from action_conditioned_gans_tpu_torch.ops.common import same_pad
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -119,6 +120,29 @@ def test_split_layers_per_preset(preset, dtype):
     # The dispatch counted each layer once, on the route the table gives.
     assert api.ROUTES == {**dict.fromkeys(api.ROUTES, 0), "fused": len(layers) - len(split),
                            "split": len(split)}
+
+
+# The split convs that still write out a padded input: those on an odd
+# plane, which SAME pads (1, 2). No preset has one (its planes halve from
+# 64, 128 or 256); config1 at 56x56 gives D conv_3 a 7x7 input.
+PAD_COPY = {("config1", "float32", 56): ["D.conv_3"]}
+
+
+@pytest.mark.parametrize("preset,dtype,size", [
+    (p, d, None) for p in sorted(PRESETS) for d in sorted(DTYPES)] + [("config1", "float32", 56)])
+def test_split_convs_that_write_out_their_pad(preset, dtype, size):
+    api.reset_routes()
+    layers = preset_layers(preset, dtype, batch=2, **({"image_size": size} if size else {}))
+    padded = []
+    for name, block, x_shape, _ in layers:
+        route = envelope.route(x_shape, tuple(block.kernel.shape), block.stride, block.transpose,
+                               block.norm, block.groups, DTYPES[dtype])
+        pads = [same_pad(n, k, block.stride)[1:] for n, k in zip(x_shape[1:3], block.kernel.shape)]
+        if route == "split" and not block.transpose and any(lo != hi for lo, hi in pads):
+            padded.append(name)
+    assert padded == PAD_COPY.get((preset, dtype, size), [])
+    assert api.ROUTES["pad_copy"] == len(padded)
+    assert api.ROUTES["split"] >= len(padded)
 
 
 EDGE_CONV = [

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from action_conditioned_gans_tpu.ops import pallas as P
 from action_conditioned_gans_tpu.ops import xla as X
@@ -92,6 +94,61 @@ def test_reference_conv2d_same_padding_matches_xla(hw, k, stride):
     want = np.asarray(X.conv2d(j(x), j(w), stride=stride))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+class _OpLog(TorchDispatchMode):
+    """The aten ops run inside, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def _conv2d_explicit_pad(x, w, stride):
+    """SAME conv with the padded input written out first."""
+    plo, phi, qlo, qhi = reference.same_pads(x.shape, w.shape, stride)
+    xn = F.pad(x.permute(0, 3, 1, 2), (qlo, qhi, plo, phi))
+    y = F.conv2d(xn, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw,k,stride,cin", [
+    (16, 4, 2, 10), (16, 4, 2, 64),  # config5's strided convs (D conv_0 has 10 channels)
+    (16, 3, 1, 10), (8, 3, 1, 64),  # its 3x3 extra layers
+    (7, 4, 2, 10),  # an odd plane: SAME pads (1, 2), written out
+])
+def test_reference_conv2d_pads_inside_the_conv(hw, k, stride, cin, dtype):
+    """A symmetric SAME pad is the convolution's own: neither the forward
+    nor the backward runs ``constant_pad_nd``, and out, dx and dw are the
+    explicit pad's, bit for bit (float32 dx within rounding: its backward
+    sums the taps over the unpadded plane in another order). An odd plane
+    still pads explicitly."""
+    dt = getattr(torch, dtype)
+    x = t(rand(70, 2, hw, hw, cin)).to(dt)
+    w = t(rand(71, k, k, cin, 12, scale=0.2))
+    ct = t(rand(72, 2, -(-hw // stride), -(-hw // stride), 12)).to(dt)
+    runs = []
+    for fn in (reference.conv2d, _conv2d_explicit_pad):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        with _OpLog() as log:
+            out = fn(xi, wi, stride=stride)
+            dx, dw = torch.autograd.grad(out, (xi, wi), ct)
+        runs.append(((out, dx, dw), log.ops))
+    (got, ops), (want, _) = runs
+    inside = reference.pads_inside(x.shape, w.shape, stride)
+    assert inside == (hw % 2 == 0)
+    assert ("constant_pad_nd" in ops) == (not inside), ops
+    for a, b, name in zip(got, want, ("out", "dx", "dw")):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name == "dx" and dt == torch.float32:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+        else:
+            assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("hw", [8, 5])
